@@ -23,7 +23,29 @@ each of which fails the run if it fails:
      max_len=1024, prompt_len=128, chunk=8))``: 16 requests with ragged
      prompts of 32-128 tokens and 128 new tokens each (two admission
      waves).  Launch counters are zeroed just before ``run()`` and read
-     just after: both kernels must have run on the main path.
+     just after: both kernels must have run on the main path.  Its memory
+     is freed before the DLRM phases.
+  5. DLRM reference — reduced dlrm0 with the same weights and batch on the
+     CPU (plain versions) and on the card (kernels): the logits of both
+     lookup routes agree;
+  6. DLRM kernels — the fused lookup and the row gather against their
+     plain versions on the card: small edge cases (all ids -1, a mean
+     slot with count 0, repeated rows, valency 1 and 128, every dim),
+     then the one-card dlrm0 (its 150 tables at published widths and
+     valencies, vocabularies cut to 12e9 parameters = 48.0 GB f32,
+     initialised on the card from seed 0 once) at B = 256 (the repo's
+     per-chip batch: 65,536 over 256 chips) and B = 4096 (a scoring batch
+     for one card); each kernel is timed beside its plain version, its
+     byte bound (each distinct row of the batch read once) and
+     ``F.embedding_bag`` / ``F.embedding`` (yardsticks only: the port
+     never calls them);
+  7. DLRM scoring — ``api.forward`` on batches of B = 4096 from the port's
+     ``make_batch``: 20 through the fused route, 3 through the per-table
+     route, under ``torch.inference_mode()``.  Counters are zeroed just
+     before and read just after: 1 fused launch a batch, 150 gathers a
+     batch.  Reports samples/s, ms a batch, peak allocated memory (which
+     shows that no padded copy of the 48 GB of tables was made) and the
+     card's idle share over one batch.
 
 Prints, last: a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and
@@ -31,6 +53,7 @@ limit as ``nvidia-smi`` gives them, and
 Exits non-zero without a CUDA device or without the repository's ``src``.
 """
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -40,9 +63,17 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
+F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 # bf16 in and out, f32 inside both the kernel and its plain version: they
 # differ by the last bf16 rounding (2^-8 relative) and f32 reordering.
 KERNEL_ATOL = KERNEL_RTOL = 1e-2
+# f32 in and out (embedding lookups): the kernel adds a slot's rows in
+# column order, the plain version with torch.sum's tree; at most 128 rows
+# of |x| <= ~5 differ by a few f32 ulps of the sum.  The gather is a copy.
+EMB_ATOL = EMB_RTOL = 1e-5
+DLRM_BATCH = 4096              # scoring batch on one card
+DLRM_CHIP_BATCH = 65536 // 256   # the repo's per-chip dlrm0 batch
+DLRM_TABLE_PARAMS = 12_000_000_000   # one-card cut: vocabularies only
 # logits of the card (kernels, cuBLAS bf16) against the CPU (plain, CPU
 # bf16 matmuls): 8 bf16 ulps at the largest logit, as the CPU tests use
 LOGIT_REL_TOL = 2.0 ** -5
@@ -73,20 +104,24 @@ def cuda_ms(torch, fn, n_inputs, iters=30, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def max_err(torch, got, want, what):
+def max_err(torch, got, want, what, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} != "
+                                   f"{tuple(want.shape)}")
+    if not got.numel():
+        return 0.0
     err = (got.float() - want.float()).abs()
-    lim = KERNEL_ATOL + KERNEL_RTOL * want.float().abs()
+    lim = atol + rtol * want.float().abs()
     check(bool((err <= lim).all()),
           f"{what}: max |kernel - plain| {err.max().item():.3e} over "
-          f"atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}")
+          f"atol {atol} + rtol {rtol}")
     return err.max().item()
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / BF16_FLOPS_PER_S * 1e3
+    t_flops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
 
 
@@ -185,6 +220,8 @@ def prefill_phase(torch, F, FA, REF):
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
     return tree.to(device)
 
 
@@ -313,9 +350,368 @@ def profile_chunk(torch, np, cfg, params, engine_mod, spec):
             "top_device_ms": [[n[:70], t] for n, t in top]}
 
 
+def profile_busy(torch, fn):
+    """The card's busy and idle share over one call of ``fn`` (after a warm
+    call): summed device kernel time from torch.profiler over the wall
+    time of the same call unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in dev_events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    if not dev_events or busy_ms <= 0:
+        return {"device_time": "not measured (no device events recorded)"}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / (wall * 1e3)),
+            "device_events": len(dev_events),
+            "top_device_ms": [[n[:70], t] for n, t in top]}
+
+
+def dlrm_reference_phase(torch, registry, api, ShapeConfig, FL, EG,
+                         dev="cuda"):
+    """Reduced dlrm0, same weights and batch: CPU (plain) vs card
+    (kernels), both lookup routes."""
+    cfg = registry.get_reduced("dlrm0")
+    p_cpu = api.init_params(cfg, seed=0, device="cpu")
+    b_cpu = api.make_batch(cfg, ShapeConfig("dlrm_check", "prefill", 1, 64),
+                           seed=1, device="cpu")
+    p_gpu, b_gpu = _to(p_cpu, dev), _to(b_cpu, dev)
+    worst = (0.0, 0.0, 0.0)                 # (err / tol, err, tol)
+    f0, g0 = FL.launches, EG.launches
+    for fused in (True, False):
+        want = api.forward(cfg, p_cpu, b_cpu, fused=fused)[0]
+        with torch.inference_mode():
+            got = api.forward(cfg, p_gpu, b_gpu, fused=fused)[0].cpu()
+        check(got.shape == want.shape == (64,)
+              and bool(torch.isfinite(got).all()),
+              f"dlrm reference (fused={fused}): logits {tuple(got.shape)} "
+              f"not finite")
+        tol = LOGIT_REL_TOL * want.abs().max().item()
+        err = (got - want).abs().max().item()
+        check(err <= tol, f"dlrm reference (fused={fused}): card vs CPU "
+                          f"logits differ by {err:.4g} > {tol:.4g}")
+        worst = max(worst, (err / tol, err, tol))
+    check(FL.launches > f0 and EG.launches >= g0 + len(cfg.dlrm.tables),
+          "dlrm reference: the card's forward did not reach the kernels")
+    return worst
+
+
+def emb_small_cases(torch, FL, EG, REF, dev="cuda"):
+    """Edge cases of both lookup kernels against their plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dims = (32, 64, 96, 128, 192, 256)
+    groups = [torch.randn((r, d), generator=gen, device=dev)
+              for r, d in zip((300, 50, 7, 1000, 20, 64), dims)]
+    # (group, valency, mean): valency 1 and 128, sum and mean, every dim
+    spec = [(0, 1, 0), (0, 128, 1), (1, 10, 1), (2, 32, 0), (3, 128, 0),
+            (4, 1, 1), (5, 100, 1), (5, 128, 0), (3, 3, 1), (1, 1, 0)]
+    B = 17
+    slots, cols, c0 = [], [], 0
+    for g, w, mean in spec:
+        slots.append((g, c0, c0 + w, mean))
+        cols.append(torch.randint(-1, groups[g].shape[0], (B, w),
+                                  generator=gen, device=dev))
+        c0 += w
+    rows = torch.cat(cols, dim=1).to(torch.int32)
+    rows[0, slots[1][1]:slots[1][2]] = -1      # mean slot, count 0
+    rows[0, slots[3][1]:slots[3][2]] = -1      # sum slot, every id -1
+    rows[1, slots[4][1]:slots[4][2]] = 5       # one row repeated 128 times
+    rows[2, slots[6][1]:slots[6][2]:2] = 3     # repeated rows among others
+    rows[3, :] = -1                            # a sample with no value
+    slot_t = torch.tensor(slots, dtype=torch.int32, device=dev)
+    got = FL.fused_lookup(groups, rows, slot_t, 256)
+    want = REF.fused_lookup_ref(groups, rows, slot_t, 256)
+    err_f = max_err(torch, got, want, "fused lookup, small cases",
+                    EMB_ATOL, EMB_RTOL)
+    check(not got[3].any() and not got[0, 1].any() and not got[0, 3].any(),
+          "fused lookup: a slot with no valid id is not zero")
+    for k, (g, _, _, _) in enumerate(slots):
+        check(not got[:, k, dims[g]:].any(),
+              f"fused lookup: lanes past dim {dims[g]} of slot {k} not zero")
+    err_g = 0.0
+    for V, D, Bg, Vl in ((300, 32, 5, 1), (1000, 128, 9, 128),
+                         (7, 96, 4, 10), (64, 256, 3, 100)):
+        table = torch.randn((V, D), generator=gen, device=dev)
+        ids = torch.randint(-1, V, (Bg, Vl), generator=gen, device=dev
+                            ).to(torch.int32)
+        ids[0] = -1
+        got = EG.embedding_gather(table, ids)
+        err_g = max(err_g, max_err(torch, got,
+                                   REF.embedding_gather_ref(table, ids),
+                                   f"row gather V{V} D{D} B{Bg} Vl{Vl}",
+                                   EMB_ATOL, EMB_RTOL))
+        check(not got[0].any(), "row gather: ids -1 gave a non-zero row")
+    return err_f, err_g
+
+
+def _bag_inputs(torch, plan, groups, rows):
+    """``F.embedding_bag`` inputs computing the fused lookup per row space:
+    flat ids, bag offsets and per-id weights (0 for an invalid id, 1/count
+    in a mean slot)."""
+    B, dev = rows.shape[0], rows.device
+    bags = []
+    for gi, table in enumerate(groups):
+        spans = [(a, b, m) for g, a, b, m in plan.slot_table if g == gi]
+        if not spans:
+            continue
+        ids = torch.cat([rows[:, a:b] for a, b, _ in spans], dim=1)
+        w = (ids >= 0).float()
+        starts, c0 = [], 0
+        for a, b, mean in spans:
+            if mean:
+                part = w[:, c0:c0 + b - a]
+                part /= part.sum(dim=1, keepdim=True).clamp_min(1.0)
+            starts.append(c0)
+            c0 += b - a
+        offsets = (torch.arange(B, device=dev)[:, None] * c0
+                   + torch.tensor(starts, device=dev)[None, :]).reshape(-1)
+        bags.append((table, ids.clamp_min(0).reshape(-1).long(), offsets,
+                     w.reshape(-1)))
+    return bags
+
+
+def dlrm_kernel_phase(torch, F, cfg, coll, tables, DL, ShapeConfig, FL, EG,
+                      REF, B, dev="cuda"):
+    """Both lookup kernels at the one-card dlrm0's tables and batch B: held
+    against their plain versions, timed beside them, their byte bound and
+    a PyTorch yardstick."""
+    shape = ShapeConfig("dlrm_kernels", "prefill", 1, B)
+    feats = []
+    for seed in (10, 11):
+        batch = DL.make_batch(cfg, shape,
+                              torch.Generator(device=dev).manual_seed(seed))
+        feats.append({t.name: batch[f"cat_{t.name}"]
+                      for t in cfg.dlrm.tables})
+        del batch
+    fused_in = [coll.fused_inputs(tables, f) for f in feats]
+    plan = fused_in[0][0]
+    K, dmax = len(plan.fslots), plan.dmax
+    out = {}
+    with torch.inference_mode():
+        # -- fused lookup ---------------------------------------------------
+        _, groups, rows, slots = fused_in[0]
+        err = max_err(torch, FL.fused_lookup(groups, rows, slots, dmax),
+                      REF.fused_lookup_ref(groups, rows, slots, dmax),
+                      f"fused lookup at B={B}", EMB_ATOL, EMB_RTOL)
+        args = [(g, r, sl, dmax) for _, g, r, sl in fused_in]
+        ms = cuda_ms(torch, lambda i: FL.fused_lookup(*args[i]), 2, iters=20)
+        plain_ms = cuda_ms(torch, lambda i: REF.fused_lookup_ref(*args[i]),
+                           2, iters=5, warmup=1)
+        # bytes: each distinct row once (the Zipf ids repeat rows within a
+        # batch), every id once, the (B, K, Dmax) output once; operations:
+        # one add per lane of every valid id
+        col_group = torch.tensor([g for g, a, b, _ in plan.slot_table
+                                  for _ in range(a, b)], device=dev)
+        valid_rows = distinct_rows = valid_elems = distinct_elems = 0
+        for gi, table in enumerate(groups):
+            ids = rows[:, col_group == gi]
+            n_valid = int((ids >= 0).sum())
+            n_distinct = int(torch.unique(ids[ids >= 0]).numel())
+            valid_rows += n_valid
+            distinct_rows += n_distinct
+            valid_elems += n_valid * table.shape[1]
+            distinct_elems += n_distinct * table.shape[1]
+            del ids
+        nbytes = (distinct_elems * 4 + rows.numel() * 4 + B * K * dmax * 4
+                  + K * 16)
+        bound_ms, bound_by = bound(nbytes, valid_elems, F32_FLOPS_PER_S)
+        bags = [_bag_inputs(torch, p, g, r) for p, g, r, _ in fused_in]
+
+        def library(i):
+            for table, ids, offs, w in bags[i]:
+                F.embedding_bag(ids, table, offs, mode="sum",
+                                per_sample_weights=w)
+
+        library_ms = cuda_ms(torch, library, 2, iters=10)
+        del bags
+        out["fused_lookup"] = dict(
+            name="fused_lookup", route="cuda",
+            source="src/repro_torch/kernels/csrc/fused_lookup.cu",
+            replaces="src/repro/kernels/embedding_lookup.py:207",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms, batch=B,
+            valid_rows=valid_rows, distinct_rows=distinct_rows,
+            bytes=nbytes)
+        del fused_in, args, rows, groups
+        # -- row gather: one launch per table, as the per-table route -----
+        sets = [[(coll.table_view(tables, t), f[t.name])
+                 for t in cfg.dlrm.tables] for f in feats]
+        err = 0.0
+        for view, ids in sets[0]:
+            err = max(err, max_err(torch, EG.embedding_gather(view, ids),
+                                   REF.embedding_gather_ref(view, ids),
+                                   f"row gather at B={B}", EMB_ATOL,
+                                   EMB_RTOL))
+
+        def each(fn, i, sets=sets):
+            for x, y in sets[i]:
+                fn(x, y)
+
+        ms = cuda_ms(torch, lambda i: each(EG.embedding_gather, i), 2,
+                     iters=10)
+        plain_ms = cuda_ms(torch, lambda i: each(REF.embedding_gather_ref, i),
+                           2, iters=5, warmup=1)
+        clamped = [[(ids.clamp_min(0), view) for view, ids in st]
+                   for st in sets]        # F.embedding(ids, table)
+        library_ms = cuda_ms(torch, lambda i: each(F.embedding, i, clamped),
+                             2, iters=10)
+        # bytes: each table's distinct rows once, every id once, the
+        # (B, Vl, D) output once
+        valid_rows = sum(int((ids >= 0).sum()) for _, ids in sets[0])
+        distinct = [int(torch.unique(ids[ids >= 0]).numel())
+                    for _, ids in sets[0]]
+        distinct_elems = sum(n * view.shape[1]
+                             for n, (view, _) in zip(distinct, sets[0]))
+        out_elems = sum(ids.numel() * view.shape[1] for view, ids in sets[0])
+        nbytes = (distinct_elems + out_elems) * 4 + sum(
+            ids.numel() * 4 for _, ids in sets[0])
+        bound_ms, bound_by = bound(nbytes, 0)
+        out["embedding_gather"] = dict(
+            name="embedding_gather", route="cuda",
+            source="src/repro_torch/kernels/csrc/embedding_gather.cu",
+            replaces="src/repro/kernels/embedding_lookup.py:57",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms, batch=B,
+            launches_timed=len(sets[0]), valid_rows=valid_rows,
+            distinct_rows=sum(distinct), bytes=nbytes)
+    return out
+
+
+def dlrm_score_phase(torch, cfg, params, coll, api, ShapeConfig, FL, EG,
+                     n_fused=20, n_legacy=3, dev="cuda"):
+    """The DLRM scoring path at B = DLRM_BATCH through both lookup
+    routes; counters zeroed just before and read just after."""
+    shape = ShapeConfig("dlrm_score", "prefill", 1, DLRM_BATCH)
+    with torch.inference_mode():           # warm-up, outside the count
+        batch = api.make_batch(cfg, shape, seed=100, device=dev)
+        for fused in (True, False):
+            api.forward(cfg, params, batch, coll=coll, fused=fused)
+        del batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {True: [], False: []}
+    kept = {}
+    FL.launches = EG.launches = 0
+    with torch.inference_mode():
+        for i in range(n_fused + n_legacy):
+            fused = i < n_fused
+            seed = 200 + (i if fused else i - n_fused)
+            batch = api.make_batch(cfg, shape, seed=seed, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = api.forward(cfg, params, batch, coll=coll,
+                                    fused=fused)
+            torch.cuda.synchronize()
+            times[fused].append(time.perf_counter() - t0)
+            check(tuple(logits.shape) == (DLRM_BATCH,)
+                  and bool(torch.isfinite(logits).all()),
+                  f"dlrm scoring: logits {tuple(logits.shape)} not finite")
+            if seed - 200 < n_legacy:
+                kept[(fused, seed)] = logits.cpu()
+            del batch, logits
+    launches = {"fused_lookup": FL.launches, "embedding_gather": EG.launches}
+    peak = torch.cuda.max_memory_allocated()
+    n_tables = len(cfg.dlrm.tables)
+    check(launches["fused_lookup"] == n_fused,
+          f"fused lookup launched {launches['fused_lookup']} times for "
+          f"{n_fused} batches")
+    check(launches["embedding_gather"] == n_legacy * n_tables,
+          f"row gather launched {launches['embedding_gather']} times for "
+          f"{n_legacy} batches x {n_tables} tables")
+    worst = (0.0, 0.0, 0.0)
+    for seed in range(200, 200 + n_legacy):
+        a, b = kept[(True, seed)], kept[(False, seed)]
+        tol = LOGIT_REL_TOL * a.abs().max().item()
+        err = (a - b).abs().max().item()
+        check(err <= tol, f"dlrm scoring: fused and per-table logits differ "
+                          f"by {err:.4g} > {tol:.4g} (batch seed {seed})")
+        worst = max(worst, (err / tol, err, tol))
+    check(peak < 52e9, f"dlrm scoring: peak allocated {peak / 1e9:.2f} GB "
+                       f">= 52 GB (a copy of the tables?)")
+    with torch.inference_mode():
+        batch = api.make_batch(cfg, shape, seed=300, device=dev)
+        prof = profile_busy(torch, lambda: api.forward(cfg, params, batch,
+                                                       coll=coll))
+        del batch
+    fused_s, legacy_s = sum(times[True]), sum(times[False])
+    stats = {
+        "batch": DLRM_BATCH, "batches_fused": n_fused,
+        "batches_per_table": n_legacy,
+        "samples_per_s_fused": DLRM_BATCH * n_fused / fused_s,
+        "samples_per_s_per_table": DLRM_BATCH * n_legacy / legacy_s,
+        "ms_per_batch_fused": [t * 1e3 for t in times[True]],
+        "ms_per_batch_per_table": [t * 1e3 for t in times[False]],
+        "median_ms_fused": sorted(times[True])[n_fused // 2] * 1e3,
+        "median_ms_per_table": sorted(times[False])[n_legacy // 2] * 1e3,
+        "peak_mem_gb": peak / 1e9,
+        "fused_vs_per_table_logits": {"max_err": worst[1],
+                                      "tolerance": worst[2]},
+        "profile_fused_batch": prof,
+    }
+    return stats, launches
+
+
+def dlrm_phases(torch, F, registry, api, DL, ShapeConfig, FL, EG, REF,
+                dev="cuda"):
+    import dataclasses
+    from repro_torch.configs import dlrm0
+    worst = dlrm_reference_phase(torch, registry, api, ShapeConfig, FL, EG,
+                                 dev)
+    log(f"dlrm reference: card vs CPU logits differ by at most "
+        f"{worst[1]:.3e} (tolerance {worst[2]:.3e} at that route)")
+    small = emb_small_cases(torch, FL, EG, REF, dev)
+    log(f"dlrm kernels, small cases: max |err| fused {small[0]:.3e}, "
+        f"gather {small[1]:.3e}")
+    base = registry.get_config("dlrm0")
+    cfg = base.replace(dlrm=dataclasses.replace(
+        base.dlrm, tables=dlrm0._table_specs(target_params=DLRM_TABLE_PARAMS)))
+    n_emb = sum(t.vocab_size * t.dim for t in cfg.dlrm.tables)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    info = {"init_s": time.perf_counter() - t0, "emb_params": n_emb,
+            "emb_gb": n_emb * 4 / 1e9,
+            "dense_params": sum(t.numel() for t in _leaves(
+                [params["bottom"], params["top"]])),
+            "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    check(sum(t.numel() for t in params["tables"].values()) == n_emb,
+          "dlrm0 tables: row spaces do not hold every table")
+    log("dlrm0 (one card):", json.dumps(info))
+    coll = DL.collection_for(cfg)
+    kern = {}
+    for B in (DLRM_CHIP_BATCH, DLRM_BATCH):
+        kern[B] = dlrm_kernel_phase(torch, F, cfg, coll, params["tables"], DL,
+                                    ShapeConfig, FL, EG, REF, B, dev)
+        log(f"dlrm kernels at B={B}:", json.dumps(kern[B]))
+        torch.cuda.empty_cache()
+    stats, launches = dlrm_score_phase(torch, cfg, params, coll, api,
+                                       ShapeConfig, FL, EG, dev=dev)
+    stats.update(info)
+    log("dlrm scoring:", json.dumps(stats))
+    return kern, stats, launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
@@ -339,11 +735,15 @@ def main(argv=None):
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import embedding_gather as EG
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_lookup as FL
     from repro_torch.kernels import ref as REF
     from repro_torch.models import api
+    from repro_torch.models import dlrm as DL
     from repro_torch.models import transformer as TF
     from repro_torch.serve import engine as engine_mod
 
@@ -374,20 +774,31 @@ def main(argv=None):
     stats, launches = serve_phase(torch, np, registry.get_config("olmo-1b"),
                                   api, engine_mod, DA, FA)
     log("serve:", json.dumps(stats))
+    gc.collect()                    # the serve phase's weights and caches
+    torch.cuda.empty_cache()
+
+    dlrm_kern, dlrm_stats, dlrm_launches = dlrm_phases(
+        torch, F, registry, api, DL, ShapeConfig, FL, EG, REF)
 
     decode["launches"] = launches["paged_decode_attention"]
     prefill["launches"] = launches["flash_attention"]
+    fused, gather = (dlrm_kern[DLRM_BATCH][n]
+                     for n in ("fused_lookup", "embedding_gather"))
+    fused["launches"] = dlrm_launches["fused_lookup"]
+    gather["launches"] = dlrm_launches["embedding_gather"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = {"kernels": [{k: kern[k] for k in keys}
-                           for kern in (decode, prefill)]}
+                           for kern in (decode, prefill, fused, gather)]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(card=card, serve=stats, reference_worst=worst,
-                 build_s=build.build_seconds, **kernels), indent=2))
+                 build_s=build.build_seconds, dlrm_scoring=dlrm_stats,
+                 dlrm_kernels={str(b): v for b, v in dlrm_kern.items()},
+                 **kernels), indent=2))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

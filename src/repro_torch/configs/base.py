@@ -1,15 +1,31 @@
-"""Config dataclasses the port's dense family needs.
+"""Config dataclasses the port's dense and DLRM families need.
 
-Copies of ``repro.configs.base.AttentionConfig`` and ``ModelConfig``,
-cut to the fields a dense decoder reads.  The port keeps its own copy
-instead of importing the JAX package; ``tests/test_torch_interop.py``
+Copies of ``repro.configs.base.ShapeConfig``, ``AttentionConfig``,
+``EmbeddingTableConfig``, ``DLRMConfig`` and ``ModelConfig``, the last cut
+to the fields a dense decoder or a DLRM reads.  The port keeps its own
+copy instead of importing the JAX package; ``tests/test_torch_interop.py``
 holds every kept field equal to the reference config.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
+
+
+# kind: which step function the cell drives.
+#   "train"   -> forward + backward + optimizer update
+#   "prefill" -> forward over the full sequence (for a DLRM: scoring)
+#   "decode"  -> one new token against a seq_len KV cache/state
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str                 # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+    def __post_init__(self):
+        assert self.kind in ("train", "prefill", "decode"), self.kind
 
 
 @dataclass(frozen=True)
@@ -30,14 +46,39 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class EmbeddingTableConfig:
+    name: str
+    vocab_size: int
+    dim: int
+    # average number of categorical values per example (1 = univalent)
+    avg_valency: float = 1.0
+    max_valency: int = 1
+    combiner: str = "sum"              # "sum" | "mean"
+
+    def __post_init__(self):
+        assert self.combiner in ("sum", "mean")
+
+
+@dataclass(frozen=True)
+class DLRMConfig:
+    tables: Tuple[EmbeddingTableConfig, ...]
+    # dense tower
+    bottom_mlp: Tuple[int, ...] = (512, 256, 128)
+    top_mlp: Tuple[int, ...] = (1024, 1024, 512, 256, 1)
+    dense_features: int = 13
+    interaction: str = "dot"           # "dot" | "cat"
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # "dense" (others: not ported yet)
+    family: str                        # "dense" | "dlrm" (others: not ported)
     num_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attention: Optional[AttentionConfig] = None
+    dlrm: Optional[DLRMConfig] = None
 
     norm: str = "rmsnorm"              # "rmsnorm" | "layernorm" | "nonparam_ln"
     act: str = "silu"                  # "silu" | "gelu" (glu applied per ffn_glu)

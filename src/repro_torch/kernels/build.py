@@ -31,6 +31,9 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_PP = ctypes.POINTER(ctypes.c_void_p)   # a host array of device pointers
+_PI = ctypes.POINTER(ctypes.c_int)      # a host array of ints
 # C signature of every kernel entry point: argtypes must be declared, or
 # ctypes passes each pointer as a 32-bit int and cuts it.
 SIGNATURES = {
@@ -38,6 +41,9 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "repro_flash_attention_bf16":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "repro_fused_lookup_f32":
+        [_PP, _PI, _PI, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_embedding_gather_f32": [_P, _P, _P, _L, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,162 @@
+// Fused multi-table embedding lookup (sum / mean per table) for sm_90a.
+//
+// Replaces repro/kernels/embedding_lookup.py::fused_lookup_kernel_call
+// (Pallas body _fused_lookup_kernel), the SparseCore Fetch-unit model: one
+// launch over every table.  Same function as
+// repro_torch/kernels/ref.py::fused_lookup_ref:
+//
+//   groups   G row spaces, group g is (rows_g, dim_g) f32, row-major
+//   rows     (B, S) int32 group-local row ids, -1 = no value
+//   slots    (K, 4) int32: per output slot k (one table) the group g, the
+//            descriptor-column span [a, b) of rows, and a mean flag
+//   -> out   (B, K, Dm) f32; out[b, k, :dim_g] is the sum (or the mean,
+//            count floored at 1) of the valid rows of columns [a, b), and
+//            lanes >= dim_g are zero
+//
+// The Pallas kernel reads ONE (R, Dm) table: every width-group padded to
+// Dm lanes and concatenated, on every call.  For dlrm0 that copy would be
+// as large as the tables themselves (tens of GB), so this kernel reads the
+// G row spaces where they lie: their base pointers, dims and row counts
+// travel by value in the kernel's parameters (__grid_constant__, no copy).
+//
+// Bound on the H100: bytes.  Each valid id reads one row of dim_g floats
+// once and adds it (one flop per 4 bytes), so the kernel's job is to keep
+// enough row loads in flight.  Design:
+//   * one warp per (sample b, slot k); it loads 32 row ids at once
+//     (coalesced), broadcasts them with shuffles, and issues the loads of
+//     UNROLL rows before it adds them; lane l owns float4 chunks l, l+32,
+//     ... of the row (16-byte loads, one row read by consecutive lanes);
+//   * the sum and the count stay in f32 registers and are added in column
+//     order, with no atomics: the result is the same run to run;
+//   * every offset is 64-bit: a dlrm0 row space holds more than 2^31
+//     elements.
+// An id at or past the group's last row reads the last row (JAX's
+// mode="clip"); a span outside [0, S) is clamped to it.
+// Not yet done (a later PR): TMA/cp.async staging, packing several narrow
+// slots into one warp (a dim-32 slot keeps 8 of 32 lanes busy), and
+// reading each distinct hot row once per block.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int MAXG = 128;       // row spaces one launch can address
+constexpr int WARPS = 8;        // (b, k) pairs per block
+constexpr int NT = WARPS * 32;
+constexpr int UNROLL = 4;       // rows whose loads are in flight per warp
+
+struct GroupTable {
+  const float4* base[MAXG];
+  int dim[MAXG];
+  int rows[MAXG];
+  int n;
+};
+
+__device__ __forceinline__ void add4(float4& acc, const float4& v) {
+  acc.x += v.x;
+  acc.y += v.y;
+  acc.z += v.z;
+  acc.w += v.w;
+}
+
+template <int CPL>              // float4 chunks per lane: Dm <= 128 * CPL
+__global__ void __launch_bounds__(NT) fused_lookup_kernel(
+    const __grid_constant__ GroupTable groups, const int* __restrict__ rows,
+    const int4* __restrict__ slots, float* __restrict__ out, int B, int S,
+    int K, int Dm) {
+  const long long w = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+  if (w >= (long long)B * K) return;
+  const int lane = threadIdx.x % 32;
+  const int b = (int)(w / K), k = (int)(w % K);
+  const int4 sl = slots[k];                 // group, col a, col b, mean
+  const bool ok = sl.x >= 0 && sl.x < groups.n;
+  const int g = ok ? sl.x : 0;
+  const int nch = ok ? groups.dim[g] / 4 : 0;
+  const int last = groups.rows[g] - 1;
+  const float4* __restrict__ base = groups.base[g];
+  const int a = max(sl.y, 0);
+  const int e = ok ? min(sl.z, S) : 0;
+  const int* __restrict__ rrow = rows + (size_t)b * S;
+
+  float4 acc[CPL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  int cnt = 0;
+  for (int c0 = a; c0 < e; c0 += 32) {
+    const int n = min(32, e - c0);
+    const int mine = lane < n ? __ldg(rrow + c0 + lane) : -1;
+    for (int j = 0; j < n; j += UNROLL) {  // j <= 28, so j + u <= 31
+      int r[UNROLL];
+      float4 v[UNROLL][CPL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        r[u] = min(__shfl_sync(0xffffffffu, mine, j + u), last);
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          const int ch = lane + 32 * c;
+          v[u][c] = (r[u] >= 0 && ch < nch)
+                        ? __ldg(base + (size_t)r[u] * nch + ch)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (r[u] < 0) continue;             // the same for the whole warp
+        ++cnt;
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) add4(acc[c], v[u][c]);
+      }
+    }
+  }
+
+  const float denom = (sl.w != 0 && cnt > 0) ? (float)cnt : 1.f;
+  float4* o = reinterpret_cast<float4*>(out + ((size_t)b * K + k) * Dm);
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    const int ch = lane + 32 * c;
+    if (ch >= Dm / 4) continue;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ch < nch)
+      val = make_float4(acc[c].x / denom, acc[c].y / denom,
+                        acc[c].z / denom, acc[c].w / denom);
+    o[ch] = val;
+  }
+}
+
+}  // namespace
+
+extern "C" int repro_fused_lookup_f32(
+    const void* const* group_ptrs, const int* group_dims,
+    const int* group_rows, int n_groups, const void* rows, const void* slots,
+    void* out, int B, int S, int K, int Dm, void* stream) {
+  if (n_groups <= 0 || n_groups > MAXG || B < 0 || S < 0 || K < 0 ||
+      Dm <= 0 || Dm % 4 != 0 || Dm > 128 * 4)
+    return (int)cudaErrorInvalidValue;
+  GroupTable gt = {};
+  for (int g = 0; g < n_groups; ++g) {
+    if (group_dims[g] <= 0 || group_dims[g] % 4 != 0 ||
+        group_dims[g] > Dm || group_rows[g] <= 0)
+      return (int)cudaErrorInvalidValue;
+    gt.base[g] = static_cast<const float4*>(group_ptrs[g]);
+    gt.dim[g] = group_dims[g];
+    gt.rows[g] = group_rows[g];
+  }
+  gt.n = n_groups;
+  if (B == 0 || K == 0) return (int)cudaSuccess;
+  const long long blocks = ((long long)B * K + WARPS - 1) / WARPS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int* r = static_cast<const int*>(rows);
+  const int4* sl = static_cast<const int4*>(slots);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dm <= 128)
+    fused_lookup_kernel<1><<<(unsigned)blocks, NT, 0, st>>>(gt, r, sl, o, B,
+                                                            S, K, Dm);
+  else if (Dm <= 256)
+    fused_lookup_kernel<2><<<(unsigned)blocks, NT, 0, st>>>(gt, r, sl, o, B,
+                                                            S, K, Dm);
+  else
+    fused_lookup_kernel<4><<<(unsigned)blocks, NT, 0, st>>>(gt, r, sl, o, B,
+                                                            S, K, Dm);
+  return (int)cudaGetLastError();
+}

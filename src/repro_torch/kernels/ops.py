@@ -1,4 +1,4 @@
-"""Device dispatch for the serving-path kernels.
+"""Device dispatch for the port's kernels.
 
 The choice follows the device of the tensors given: a CPU tensor goes to
 the plain PyTorch version (``ref``); a CUDA tensor goes to the hand-written
@@ -7,10 +7,12 @@ no fallback from the card to the plain version.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import embedding_gather as EG
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import fused_lookup as FL
 from repro_torch.kernels import ref as REF
 
 
@@ -46,3 +48,18 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                   softcap=softcap, scale=scale)
     return REF.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
+
+
+def fused_lookup(groups: Sequence, rows, slots, dmax: int):
+    """groups: (R_g, D_g) row spaces; rows (B, S) group-local ids;
+    slots (K, 4) (group, col a, col b, mean) -> (B, K, dmax)."""
+    if _device_type(*groups, rows, slots) == "cuda":
+        return FL.fused_lookup(groups, rows, slots, dmax)
+    return REF.fused_lookup_ref(groups, rows, slots, dmax)
+
+
+def embedding_gather(table, ids):
+    """table (V, D); ids (B, Vl) -> (B, Vl, D), zero rows for ids < 0."""
+    if _device_type(table, ids) == "cuda":
+        return EG.embedding_gather(table, ids)
+    return REF.embedding_gather_ref(table, ids)

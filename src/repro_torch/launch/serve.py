@@ -21,7 +21,8 @@ from repro_torch.serve.engine import ServeEngine, SliceSpec
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="olmo-1b", choices=registry.ARCHS)
+    ap.add_argument("--arch", default="olmo-1b", choices=[
+        a for a in registry.ARCHS if registry.get_config(a).family == "dense"])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)

@@ -1,17 +1,20 @@
 """Family-dispatching model API of the port (``repro/models/api.py``).
 
-Dense family only for now; every other family raises
-``NotImplementedError`` naming its ROADMAP.md item.  Entry points that
-create tensors take ``device=`` and default to the card: without CUDA and
-without ``device="cpu"`` they raise instead of running on the CPU.
+The dense family serves (prefill, decode); the DLRM family scores
+(`init_params`, `forward`, `make_batch`).  Every other family, and every
+entry point a family does not have yet, raises ``NotImplementedError``
+naming its ROADMAP.md item.  Entry points that create tensors take
+``device=`` and default to the card: without CUDA and without
+``device="cpu"`` they raise instead of running on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models import dlrm as DL
 from repro_torch.models import transformer as TF
 
 
@@ -26,25 +29,59 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def _family(cfg: ModelConfig) -> None:
+def _family(cfg: ModelConfig, *ok: str) -> None:
+    """Raise unless ``cfg.family`` is one of ``ok`` (default: dense)."""
+    ok = ok or ("dense",)
+    if cfg.family in ok:
+        return
     if cfg.family == "audio":
         raise NotImplementedError(
             "whisper (legacy full-batch serve path) waits for ROADMAP.md "
             "queue 1, item 11")
-    if cfg.family != "dense":
+    if cfg.family == "dlrm":
         raise NotImplementedError(
-            f"family {cfg.family!r} waits for ROADMAP.md queue 1, item 11")
+            "the DLRM scores through api.forward; it has no decoder")
+    if cfg.family == "dense":
+        raise NotImplementedError(
+            "the dense family's training forward and batches wait for "
+            "ROADMAP.md queue 1, items 5 and 7")
+    raise NotImplementedError(
+        f"family {cfg.family!r} waits for ROADMAP.md queue 1, item 11")
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-                dtype=torch.bfloat16):
+                dtype: Optional[torch.dtype] = None):
     """Random params from a ``torch.Generator`` seeded with ``seed``, on
-    ``device``, in the JAX layout.  (Weights that must equal the JAX
-    package's come over through ``repro_torch.interop``.)"""
-    _family(cfg)
+    ``device``, in the JAX layout.  ``dtype``: the dense family's weights
+    (default bf16); a DLRM's params are f32, as the reference's.  (Weights
+    that must equal the JAX package's come over through
+    ``repro_torch.interop``.)"""
+    _family(cfg, "dense", "dlrm")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return TF.init_params(cfg, gen, device=dev, dtype=dtype)
+    if cfg.family == "dlrm":
+        if dtype not in (None, torch.float32):
+            raise ValueError(f"DLRM params are float32, not {dtype}")
+        return DL.init_params(cfg, gen)
+    return TF.init_params(cfg, gen, device=dev,
+                          dtype=dtype or torch.bfloat16)
+
+
+def forward(cfg: ModelConfig, p, batch, **kw):
+    """DLRM: -> (logits (B,) f32, aux 0.0); ``fused=`` picks the lookup
+    route (see ``models/dlrm.forward``)."""
+    _family(cfg, "dlrm")
+    return DL.forward(cfg, p, batch, **kw)
+
+
+def make_batch(cfg: ModelConfig, shape: ShapeConfig, *, seed: int = 0,
+               device="cuda") -> Dict[str, Any]:
+    """A synthetic DLRM batch of ``shape.global_batch`` samples, drawn from
+    a ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    _family(cfg, "dlrm")
+    dev = resolve_device(device)
+    return DL.make_batch(cfg, shape,
+                         torch.Generator(device=dev).manual_seed(seed))
 
 
 def prefill(cfg: ModelConfig, p, batch, *, max_len: Optional[int] = None):

@@ -67,6 +67,8 @@ class Request:
     max_new_tokens: int
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    # stamps from time.monotonic(): only compared with each other, so a
+    # wall-clock step cannot make t_done < t_first < t_submit
     t_submit: float = 0.0
     t_first: Optional[float] = None
     t_done: Optional[float] = None
@@ -145,7 +147,7 @@ class ServeEngine:
         """Enqueue one prompt; returns its `Request` handle.  The prompt is
         truncated to the last `spec.prompt_len` tokens at prefill."""
         r = Request(rid=self._next_rid, prompt=np.asarray(prompt, np.int32),
-                    max_new_tokens=max_new_tokens, t_submit=time.time())
+                    max_new_tokens=max_new_tokens, t_submit=time.monotonic())
         self._next_rid += 1
         self.queue.append(r)
         self.pending.append(r)
@@ -195,7 +197,7 @@ class ServeEngine:
         self.last_tokens[dst] = nxt[:n]
         self.sample_salt[dst] = dev_rids[:n]
         nxt = nxt.cpu().numpy()
-        now = time.time()
+        now = time.monotonic()
         for row, r in enumerate(admitted):
             r.out_tokens.append(int(nxt[row]))
             r.t_first = now
@@ -228,7 +230,7 @@ class ServeEngine:
         toks = toks.cpu().numpy()                    # (num_steps, B) — syncs
         self._record_latency(time.perf_counter() - t0)
         self._steps += num_steps
-        now = time.time()
+        now = time.monotonic()
         for i, r in enumerate(self.active):
             got = int(min(budgets[i], num_steps))
             if r is None or r.done or got == 0:
@@ -317,7 +319,7 @@ class ServeEngine:
         """Serve until the queue drains; returns latency/throughput stats."""
         self.chunk_lat_s = []
         self._steps = 0
-        t0 = time.time()
+        t0 = time.monotonic()
         while self._steps < max_steps:
             self._admit()
             if self._n_active() == 0:
@@ -329,7 +331,7 @@ class ServeEngine:
                     continue
                 break
             self._decode_chunk(self.spec.chunk)
-        wall = time.time() - t0
+        wall = time.monotonic() - t0
         done = [r for r in self.queue if r.done]
         produced = sum(len(r.out_tokens) for r in done)
         ttfts = [r.t_first - r.t_submit for r in done

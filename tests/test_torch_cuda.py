@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, the wrappers' input checks and launch counts, and the engine's
-chunk invariance through the kernels.
+version, the wrappers' input checks and launch counts, the engine's
+chunk invariance through the kernels, and the DLRM forward through the
+embedding kernels (which raise when a gradient is asked of them).
 
 Every test needs an sm_90 card and skips elsewhere.  This file imports no
 JAX, so it runs where JAX is not installed:
@@ -11,21 +12,32 @@ JAX, so it runs where JAX is not installed:
 
 bf16 inputs and outputs; the kernel and the plain version both accumulate
 in f32, so they differ by the final bf16 rounding (2^-8 relative) plus f32
-reordering: ATOL = RTOL = 1e-2.
+reordering: ATOL = RTOL = 1e-2.  The embedding kernels are f32 in and out:
+the fused lookup adds a slot's rows in column order and the plain version
+with torch.sum's tree, at most 128 rows of N(0, 1) values, so they agree
+to EMB_ATOL = EMB_RTOL = 1e-5; the row gather is a copy and agrees
+exactly.  DLRM logits (bf16 tower, cuBLAS vs the CPU's matmuls) agree to
+2^-5 of the largest |logit|.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import embedding_gather as EG
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import fused_lookup as FL
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as REF
 from repro_torch.models import api
+from repro_torch.models import dlrm as DL
 from repro_torch.serve.engine import ServeEngine, SliceSpec
 
 ATOL = RTOL = 1e-2
+EMB_ATOL = EMB_RTOL = 1e-5
+LOGIT_REL_TOL = 2.0 ** -5
 
 pytestmark = pytest.mark.cuda
 
@@ -143,3 +155,152 @@ def test_engine_greedy_chunk_invariant_on_card(card):
     assert DA.launches > d0 and FA.launches > f0
     for chunk in (3, 8):
         assert _serve(params, chunk, card) == ref
+
+
+def _fused_inputs(rng, dev, dims, spec, B):
+    """Row spaces of ``dims``; per slot (group, valency, mean); ids uniform
+    in [-1, rows) with the edge cases of chip_smoke.py: a mean slot with
+    count 0, a sum slot of -1s, one row repeated over a span, a sample
+    with no id."""
+    groups = [torch.from_numpy(rng.standard_normal(
+        (int(rng.integers(5, 500)), d)).astype(np.float32)).to(dev)
+        for d in dims]
+    slots, cols, c0 = [], [], 0
+    for g, w, mean in spec:
+        slots.append((g, c0, c0 + w, mean))
+        cols.append(rng.integers(-1, groups[g].shape[0], size=(B, w)))
+        c0 += w
+    rows = np.concatenate(cols, axis=1).astype(np.int32)
+    (_, a0, b0, _), (_, a1, b1, _) = slots[0], slots[1]
+    rows[0, a0:b0] = rows[0, a1:b1] = -1
+    rows[1, a1:b1] = 2
+    rows[2, :] = -1
+    return (groups, torch.from_numpy(rows).to(dev),
+            torch.tensor(slots, dtype=torch.int32, device=dev))
+
+
+FUSED_CASES = [                  # dims, (group, valency, mean) per slot, B
+    ((32, 64, 96, 128, 192, 256),
+     [(0, 3, 1), (1, 2, 0), (2, 1, 0), (3, 128, 1), (4, 32, 0), (5, 100, 1),
+      (5, 128, 0)], 5),
+    ((8,), [(0, 4, 1), (0, 4, 0), (0, 1, 1)], 4),
+    ((16, 8, 4), [(1, 1, 1), (0, 5, 1), (2, 2, 0), (0, 17, 0)], 300),
+    ((512,), [(0, 40, 0), (0, 33, 1)], 3),
+]
+
+
+@pytest.mark.parametrize("dims,spec,B", FUSED_CASES, ids=str)
+def test_fused_lookup_kernel_matches_plain(card, dims, spec, B):
+    rng = np.random.default_rng(B)
+    groups, rows, slots = _fused_inputs(rng, card, dims, spec, B)
+    dmax = max(dims)
+    got = FL.fused_lookup(groups, rows, slots, dmax)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, REF.fused_lookup_ref(groups, rows, slots,
+                                                         dmax),
+                               atol=EMB_ATOL, rtol=EMB_RTOL)
+    assert not got[0, :2].any() and not got[2].any()
+    for k, (g, *_) in enumerate(spec):
+        assert not got[:, k, dims[g]:].any()
+
+
+@pytest.mark.parametrize("V,D,B,Vl", [(50, 4, 3, 5), (7, 32, 4, 1),
+                                      (1000, 256, 64, 128), (3, 96, 2, 10)])
+def test_gather_kernel_matches_plain(card, V, D, B, Vl):
+    rng = np.random.default_rng(V)
+    table = torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32)
+                             ).to(card)
+    ids = torch.from_numpy(rng.integers(-1, V, size=(B, Vl)).astype(np.int32)
+                           ).to(card)
+    ids[0] = -1
+    got = EG.embedding_gather(table, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, REF.embedding_gather_ref(table, ids))
+    assert not got[0].any()
+    view = table[1:]                     # a row slice of a row space
+    assert torch.equal(EG.embedding_gather(view, ids.clamp_max(V - 2)),
+                       REF.embedding_gather_ref(view, ids.clamp_max(V - 2)))
+
+
+def test_embedding_wrappers_reject_what_the_kernels_do_not_take(card):
+    rng = np.random.default_rng(2)
+    groups, rows, slots = _fused_inputs(rng, card, (8, 16),
+                                        [(0, 3, 0), (1, 2, 1)], 4)
+    with pytest.raises(ValueError, match="float32"):
+        FL.fused_lookup([g.double() for g in groups], rows, slots, 16)
+    with pytest.raises(ValueError, match="int32"):
+        FL.fused_lookup(groups, rows.long(), slots, 16)
+    with pytest.raises(ValueError, match=r"\(K, 4\)"):
+        FL.fused_lookup(groups, rows, slots[:, :3].contiguous(), 16)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        FL.fused_lookup([groups[0][:, :6].contiguous()], rows, slots, 16)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        FL.fused_lookup(groups, rows, slots, 8)          # dim 16 > dmax
+    with pytest.raises(ValueError, match="row spaces"):
+        FL.fused_lookup(groups * 65, rows, slots, 16)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        EG.embedding_gather(groups[0][:, :6].contiguous(), rows)
+    with pytest.raises(ValueError, match="contiguous"):
+        EG.embedding_gather(groups[1][:, :8], rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        EG.embedding_gather(groups[0].cpu(), rows)
+
+
+def test_ops_routes_cuda_tensors_to_the_embedding_kernels(card):
+    rng = np.random.default_rng(3)
+    groups, rows, slots = _fused_inputs(rng, card, (8, 16),
+                                        [(0, 3, 0), (1, 2, 1)], 4)
+    f0, g0 = FL.launches, EG.launches
+    ops.fused_lookup(groups, rows, slots, 16)
+    ops.embedding_gather(groups[0], rows)
+    assert (FL.launches, EG.launches) == (f0 + 1, g0 + 1)
+
+
+def test_embedding_kernels_raise_when_a_gradient_is_asked(card):
+    rng = np.random.default_rng(4)
+    groups, rows, slots = _fused_inputs(rng, card, (8, 16),
+                                        [(0, 3, 0), (1, 2, 1)], 4)
+    leaf = groups[0].clone().requires_grad_(True)
+    f0, g0 = FL.launches, EG.launches
+    with pytest.raises(NotImplementedError, match="queue 2, item 6"):
+        FL.fused_lookup([leaf, groups[1]], rows, slots, 16)
+    with pytest.raises(NotImplementedError, match="queue 2, item 6"):
+        EG.embedding_gather(leaf, rows)
+    assert (FL.launches, EG.launches) == (f0, g0)
+    with torch.no_grad():                # no gradient asked: it runs
+        FL.fused_lookup([leaf, groups[1]], rows, slots, 16)
+    # through the model: a DLRM whose tables require grad
+    cfg = registry.get_reduced("dlrm0")
+    p = api.init_params(cfg, seed=0, device=card)
+    p["tables"] = {k: v.requires_grad_(True) for k, v in p["tables"].items()}
+    batch = api.make_batch(cfg, ShapeConfig("x", "train", 1, 8), device=card)
+    for fused in (True, False):
+        with pytest.raises(NotImplementedError, match="queue 2, item 6"):
+            api.forward(cfg, p, batch, fused=fused)
+
+
+def test_dlrm_forward_on_card_matches_cpu(card):
+    """Reduced dlrm0, same weights and batch: the kernel routes on the card
+    against the plain versions on the CPU; 1 fused launch a forward, one
+    gather a table on the per-table route."""
+    cfg = registry.get_reduced("dlrm0")
+    p = api.init_params(cfg, seed=0, device="cpu")
+    batch = api.make_batch(cfg, ShapeConfig("x", "train", 1, 32), seed=1,
+                           device="cpu")
+    to = lambda t: t.to(card)
+    pg = {"tables": {k: to(v) for k, v in p["tables"].items()},
+          "bottom": [{k: to(v) for k, v in l.items()} for l in p["bottom"]],
+          "top": [{k: to(v) for k, v in l.items()} for l in p["top"]]}
+    bg = {k: to(v) for k, v in batch.items()}
+    for fused in (True, False):
+        want = api.forward(cfg, p, batch, fused=fused)[0]
+        f0, g0 = FL.launches, EG.launches
+        with torch.inference_mode():
+            got = api.forward(cfg, pg, bg, fused=fused)[0]
+        torch.cuda.synchronize()
+        assert (FL.launches - f0, EG.launches - g0) == \
+            ((1, 0) if fused else (0, len(cfg.dlrm.tables)))
+        tol = LOGIT_REL_TOL * want.abs().max().item()
+        assert (got.cpu() - want).abs().max().item() <= tol
+        lk, _ = DL.loss_fn(cfg, pg, bg, fused=fused)
+        assert torch.isfinite(lk)

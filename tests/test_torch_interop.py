@@ -11,7 +11,7 @@ from repro.configs import registry as JREG
 from repro.models import api as JAPI
 from repro_torch import interop
 from repro_torch.configs import registry as TREG
-from repro_torch.configs.base import AttentionConfig, ModelConfig
+from repro_torch.configs.base import AttentionConfig, DLRMConfig, ModelConfig
 
 
 @pytest.fixture(scope="module")
@@ -81,6 +81,53 @@ def test_config_copy_matches_reference(getter):
         assert getattr(t, f.name) == getattr(j, f.name), f.name
     for f in dataclasses.fields(AttentionConfig):
         assert getattr(t.attention, f.name) == getattr(j.attention, f.name)
+
+
+def _dlrm_fields(cfg):
+    """A DLRM config as plain values: ModelConfig fields, the tower, and
+    every field of every table."""
+    d = cfg.dlrm
+    return (
+        {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)
+         if f.name not in ("attention", "dlrm")},
+        {f.name: getattr(d, f.name) for f in dataclasses.fields(DLRMConfig)
+         if f.name != "tables"},
+        [dataclasses.astuple(t) for t in d.tables])
+
+
+@pytest.mark.parametrize("getter", ["get_config", "get_reduced"])
+def test_dlrm0_copy_matches_reference(getter):
+    """The port's dlrm0 (150 tables at full size) equals the reference
+    config field by field, and so does the one-card cut's table list."""
+    t = getattr(TREG, getter)("dlrm0")
+    j = getattr(JREG, getter)("dlrm0")
+    assert t.attention is None and j.attention is None
+    assert _dlrm_fields(t) == _dlrm_fields(j)
+    if getter == "get_config":
+        assert len(t.dlrm.tables) == 150
+        from repro.configs import dlrm0 as JD
+        from repro_torch.configs import dlrm0 as TD
+        assert ([dataclasses.astuple(x) for x in TD._table_specs(
+                    target_params=12_000_000_000)]
+                == [dataclasses.astuple(x) for x in JD._table_specs(
+                    target_params=12_000_000_000)])
+
+
+def test_params_from_numpy_turns_the_jax_dlrm_tree():
+    """Lists (``bottom``/``top`` of {"w", "b"}) and tuples keep their
+    nesting; every leaf keeps its values."""
+    cfg = JREG.get_reduced("dlrm0")
+    tree = jax.tree.map(np.asarray,
+                        JAPI.init_params(cfg, jax.random.PRNGKey(0)))
+    tp = interop.params_from_numpy(tree)
+    assert isinstance(tp["bottom"], list) and isinstance(tp["top"], list)
+    leaves_j = jax.tree.leaves(tree)
+    leaves_t = jax.tree.leaves(tp)
+    assert len(leaves_j) == len(leaves_t)
+    for a, b in zip(leaves_j, leaves_t):
+        np.testing.assert_array_equal(b.numpy(), a)
+    pair = interop.params_from_numpy((tree["top"][0]["b"], [tree["top"][1]]))
+    assert isinstance(pair, tuple) and isinstance(pair[1], list)
 
 
 def test_unknown_arch_names_the_roadmap():

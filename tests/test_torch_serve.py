@@ -236,6 +236,25 @@ def test_no_token_loss_and_fifo(model, slots, reqspecs):
     assert firsts == sorted(firsts)
 
 
+def test_request_stamps_ignore_wall_clock_steps(model, monkeypatch):
+    """The engine stamps requests from a monotonic clock: a wall clock that
+    steps backward (NTP) between stamps leaves t_submit <= t_first <=
+    t_done."""
+    import itertools
+    import time as time_mod
+    wall = itertools.count(1e9, -3600.0)          # an hour back per read
+    monkeypatch.setattr(time_mod, "time", lambda: next(wall))
+    eng = TEngine(model["tcfg"], model["tp"],
+                  TSpec(slots=1, max_len=32, prompt_len=8, chunk=2),
+                  device="cpu")
+    reqs = [eng.submit(np.arange(4, dtype=np.int32), max_new_tokens=3)
+            for _ in range(2)]
+    stats = eng.run()
+    assert stats["requests_done"] == 2 and stats["wall_s"] >= 0
+    for r in reqs:
+        assert r.t_done >= r.t_first >= r.t_submit
+
+
 def test_sampling_chunk_invariant(model, prompts):
     outs = [_port_outputs(model, prompts, greedy=False, chunk=c)
             for c in (1, 4)]
