@@ -45,7 +45,35 @@ each of which fails the run if it fails:
      before and read just after: 1 fused launch a batch, 150 gathers a
      batch.  Reports samples/s, ms a batch, peak allocated memory (which
      shows that no padded copy of the 48 GB of tables was made) and the
-     card's idle share over one batch.
+     card's idle share over one batch.  The 48 GB of tables are freed after.
+  8. DLRM training reference — reduced dlrm0 with the same weights and
+     batch on the CPU (plain versions) and on the card (kernels): one
+     step's gradients agree, then Adam on the same gradients agrees;
+  9. fused-scatter kernel — the backward of the fused lookup against its
+     plain version: small edge cases (a row named 10,000 times, invalid
+     ids, every dim), then dlrm0 cut to 4e9 table parameters (16.0 GB f32)
+     at B = 256 and B = 4096 from ``data/synthetic.Dataset``.  The kernel
+     sums each row in (b, s) order, so it must equal, bit for bit, the
+     plain version run with ``torch.use_deterministic_algorithms`` (whose
+     ``index_add_`` sums duplicates in index order) and, on the small
+     cases, the plain version on the CPU; two launches bitwise equal.  The
+     whole call, the ordering alone, the kernel alone and the zero fill
+     alone are timed beside the plain version (default and deterministic),
+     the byte bound and ``index_add_`` (one call a row space; a yardstick
+     only);
+ 10. training — ``Trainer.train`` on that dlrm0 at B = 4096 with
+     ``OptimizerConfig(lr=3e-4, warmup_steps=20)``, as a user runs it:
+     3 warm and 10 timed steps, each drawing its batch from
+     ``Dataset.batch`` on the host (its calls timed apart), moving it to
+     the card and stepping.  Counters are zeroed just before and read
+     just after: one fused lookup and one fused scatter a step.  Then the
+     same 13 batches, staged on the card first, through the train step
+     alone (3 warm, 10 timed).  Reports ms a step and samples/s of both
+     runs, the losses (all finite), that the params moved, the peak
+     allocated memory of the user's run (< 72 GB: params, gradient, m and
+     v of the tables are 64 GB), one step split into forward + backward
+     and Adam, and the card's busy time by kernel and idle share over one
+     profiled step of the user's loop and one on a batch on the card.
 
 Prints, last: a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and
@@ -53,6 +81,7 @@ limit as ``nvidia-smi`` gives them, and
 Exits non-zero without a CUDA device or without the repository's ``src``.
 """
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -75,8 +104,17 @@ DLRM_BATCH = 4096              # scoring batch on one card
 DLRM_CHIP_BATCH = 65536 // 256   # the repo's per-chip dlrm0 batch
 DLRM_TABLE_PARAMS = 12_000_000_000   # one-card cut: vocabularies only
 # logits of the card (kernels, cuBLAS bf16) against the CPU (plain, CPU
-# bf16 matmuls): 8 bf16 ulps at the largest logit, as the CPU tests use
+# bf16 matmuls): 8 bf16 ulps at the largest logit, as the CPU tests use;
+# the same bar holds each gradient leaf against its largest |g|
 LOGIT_REL_TOL = 2.0 ** -5
+TRAIN_TABLE_PARAMS = 4_000_000_000   # one-card training cut: 4 x 16.0 GB
+TRAIN_BATCH = 4096
+TRAIN_WARM, TRAIN_TIMED = 3, 10
+TRAIN_PEAK_LIMIT = 72e9
+# Adam, card vs CPU on the same gradients: the same f32 operations, norms
+# summed in other orders: 1e-6 of each element and of the leaf's largest
+ADAM_RTOL = 1e-6
+KEY_NONE = 2 ** 63 - 1          # fused scatter's key of an invalid descriptor
 
 
 def check(cond, msg):
@@ -350,7 +388,7 @@ def profile_chunk(torch, np, cfg, params, engine_mod, spec):
             "top_device_ms": [[n[:70], t] for n, t in top]}
 
 
-def profile_busy(torch, fn):
+def profile_busy(torch, fn, top=6):
     """The card's busy and idle share over one call of ``fn`` (after a warm
     call): summed device kernel time from torch.profiler over the wall
     time of the same call unprofiled."""
@@ -374,7 +412,7 @@ def profile_busy(torch, fn):
     busy_ms = sum(by_name.values())
     if not dev_events or busy_ms <= 0:
         return {"device_time": "not measured (no device events recorded)"}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / (wall * 1e3)),
             "device_events": len(dev_events),
@@ -665,10 +703,18 @@ def dlrm_score_phase(torch, cfg, params, coll, api, ShapeConfig, FL, EG,
     return stats, launches
 
 
-def dlrm_phases(torch, F, registry, api, DL, ShapeConfig, FL, EG, REF,
-                dev="cuda"):
+def dlrm0_cut(registry, table_params):
+    """dlrm0 with its vocabularies cut to ``table_params`` f32 table
+    parameters; tables, dims, valencies, combiners and tower as published."""
     import dataclasses
     from repro_torch.configs import dlrm0
+    base = registry.get_config("dlrm0")
+    return base.replace(dlrm=dataclasses.replace(
+        base.dlrm, tables=dlrm0._table_specs(target_params=table_params)))
+
+
+def dlrm_phases(torch, F, registry, api, DL, ShapeConfig, FL, EG, REF,
+                dev="cuda"):
     worst = dlrm_reference_phase(torch, registry, api, ShapeConfig, FL, EG,
                                  dev)
     log(f"dlrm reference: card vs CPU logits differ by at most "
@@ -676,9 +722,7 @@ def dlrm_phases(torch, F, registry, api, DL, ShapeConfig, FL, EG, REF,
     small = emb_small_cases(torch, FL, EG, REF, dev)
     log(f"dlrm kernels, small cases: max |err| fused {small[0]:.3e}, "
         f"gather {small[1]:.3e}")
-    base = registry.get_config("dlrm0")
-    cfg = base.replace(dlrm=dataclasses.replace(
-        base.dlrm, tables=dlrm0._table_specs(target_params=DLRM_TABLE_PARAMS)))
+    cfg = dlrm0_cut(registry, DLRM_TABLE_PARAMS)
     n_emb = sum(t.vocab_size * t.dim for t in cfg.dlrm.tables)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -704,6 +748,351 @@ def dlrm_phases(torch, F, registry, api, DL, ShapeConfig, FL, EG, REF,
     stats.update(info)
     log("dlrm scoring:", json.dumps(stats))
     return kern, stats, launches
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """``torch.use_deterministic_algorithms`` on inside: the plain
+    scatter's ``index_add_`` then sorts its indices stably and sums each
+    row's duplicates in index order, the fused scatter's order."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def scatter_bitwise(torch, got, want, what):
+    """Fails unless every row space of ``got`` is finite and bitwise
+    ``want`` (tolerance 0: both sum each row in (b, s) order); returns
+    the max |kernel - plain|, 0.0."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == w.shape, f"{what}: row space {i} shape "
+                                  f"{tuple(g.shape)} != {tuple(w.shape)}")
+        check(bool(torch.isfinite(g).all()), f"{what}: non-finite gradient")
+        err = (g - w).abs().max().item()
+        check(torch.equal(g, w), f"{what}: row space {i} is not bitwise the "
+                                 f"ordered plain sum (max |kernel - plain| "
+                                 f"{err:.3e})")
+        worst = max(worst, err)
+    return worst
+
+
+def scatter_small_cases(torch, FS, REF, dev="cuda"):
+    """Edge cases of the fused scatter against its plain version, bitwise:
+    on the CPU (sequential (b, s) order) and on the card (deterministic
+    algorithms); two launches bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [  # row-space shapes, (group, valency, mean) per slot, B
+        ([(300, 32), (50, 64), (7, 96), (1000, 128), (20, 192), (64, 256)],
+         [(0, 1, 0), (0, 128, 1), (1, 10, 1), (2, 32, 0), (3, 128, 0),
+          (4, 1, 1), (5, 100, 1), (5, 128, 0), (3, 3, 1), (1, 1, 0)], 17),
+        ([(50, 32), (20, 256)], [(0, 1, 0), (1, 5, 1), (0, 3, 0)], 10_000),
+        ([(9, 4), (40, 8)], [(1, 3, 1), (0, 6, 0), (1, 1, 0)], 64),
+    ]
+    worst = 0.0
+    for shapes, spec, B in cases:
+        slots, cols, c0 = [], [], 0
+        for g, w, mean in spec:
+            slots.append((g, c0, c0 + w, mean))
+            cols.append(torch.randint(-1, shapes[g][0], (B, w),
+                                      generator=gen, device=dev))
+            c0 += w
+        rows = torch.cat(cols, dim=1).to(torch.int32)
+        if B == 10_000:
+            rows[:, 0] = 3                     # one row named 10,000 times
+            rows[::7, 1:] = -1
+        else:
+            rows[0, :] = -1                    # a sample with no value
+            rows[1, slots[1][1]:slots[1][2]] = 2
+        slot_t = torch.tensor(slots, dtype=torch.int32, device=dev)
+        col_slot = REF.column_slots(slot_t, c0).int()
+        dmax = max(d for _, d in shapes)
+        gout = torch.randn((B, len(spec), dmax), generator=gen, device=dev)
+        what = f"fused scatter, small case B={B}"
+        got = FS.fused_scatter(gout, rows, slot_t, col_slot, shapes)
+        again = FS.fused_scatter(gout, rows, slot_t, col_slot, shapes)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{what}: two launches differ")
+        cpu = REF.fused_scatter_ref(gout.cpu(), rows.cpu(), slot_t.cpu(),
+                                    shapes)
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(got, cpu)),
+              f"{what}: not bitwise the CPU's sequential (b, s) sum")
+        with deterministic(torch):
+            want = REF.fused_scatter_ref(gout, rows, slot_t, shapes, col_slot)
+        worst = max(worst, scatter_bitwise(torch, got, want, what))
+    return worst
+
+
+def scatter_kernel_phase(torch, cfg, coll, Dataset, ShapeConfig, FS, REF, B,
+                         dev="cuda"):
+    """The fused scatter at the training tables' shapes and a batch of B
+    from ``Dataset``: bitwise its plain version under deterministic
+    algorithms and across two launches, timed whole and by part beside its
+    byte bound and ``index_add_``."""
+    shape = ShapeConfig("dlrm_train", "train", 1, B)
+    t0 = time.perf_counter()
+    batch = Dataset(cfg, shape, seed=0).batch(0)
+    data_s = time.perf_counter() - t0
+    feats = {t.name: torch.as_tensor(batch[f"cat_{t.name}"], device=dev)
+             for t in cfg.dlrm.tables}
+    del batch
+    meta = {g.name: torch.empty((g.total_rows, d), device="meta")
+            for d, g in coll.local_groups.items()}
+    plan, groups, rows, slots = coll.fused_inputs(meta, feats)
+    col_slot = plan.on(rows.device)[2]
+    del feats
+    shapes = [tuple(g.shape) for g in groups]
+    K, dmax = len(plan.fslots), plan.dmax
+    gen = torch.Generator(device=dev).manual_seed(4)
+    gout = torch.randn((B, K, dmax), generator=gen, device=dev)
+    what = f"fused scatter at B={B}"
+
+    def plain(i=0):
+        return REF.fused_scatter_ref(gout, rows, slots, shapes, col_slot)
+
+    with torch.no_grad():
+        got = FS.fused_scatter(gout, rows, slots, col_slot, shapes)
+        again = FS.fused_scatter(gout, rows, slots, col_slot, shapes)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{what}: two launches differ")
+        del again
+        with deterministic(torch):
+            want = plain()
+        err = scatter_bitwise(torch, got, want, what)
+        del got, want
+        ms = cuda_ms(torch, lambda i: FS.fused_scatter(
+            gout, rows, slots, col_slot, shapes), 1, iters=10)
+        order_ms = cuda_ms(torch, lambda i: FS.order_descriptors(
+            rows, slots, col_slot, shapes), 1, iters=10)
+        keys, order = FS.order_descriptors(rows, slots, col_slot, shapes)
+        grads = [torch.zeros(s, device=dev) for s in shapes]
+        kernel_ms = cuda_ms(torch, lambda i: FS.reduce_runs(
+            grads, gout, col_slot, keys, order), 1, iters=10)
+        fill_ms = cuda_ms(torch, lambda i: [torch.zeros(s, device=dev)
+                                            for s in shapes], 1, iters=10)
+        plain_ms = cuda_ms(torch, plain, 1, iters=3, warmup=1)
+        with deterministic(torch):
+            plain_det_ms = cuda_ms(torch, plain, 1, iters=3, warmup=1)
+        # what this batch needs: valid descriptors, distinct rows, runs
+        n_valid = int((keys != KEY_NONE).sum())
+        runs, counts = torch.unique_consecutive(keys[:n_valid],
+                                                return_counts=True)
+        dims = torch.tensor([d for _, d in shapes], device=dev)
+        valid_elems = int(dims[keys[:n_valid] >> 32].sum())
+        distinct_elems = int(dims[runs >> 32].sum())
+        n_distinct = runs.numel()
+        longest = int(counts.max())
+        start = int(counts[:int(counts.argmax())].sum())
+        # the longest run alone: every other descriptor invalid
+        hot = torch.full_like(rows, -1).reshape(-1)
+        pos = order[start:start + longest]
+        hot[pos] = rows.reshape(-1)[pos]
+        hot_in = FS.order_descriptors(hot.reshape(rows.shape), slots,
+                                      col_slot, shapes)
+        hot_run_ms = cuda_ms(torch, lambda i: FS.reduce_runs(
+            grads, gout, col_slot, *hot_in), 1, iters=5)
+        del hot, hot_in, grads, keys, order, runs, counts
+        # index_add_, one call a row space, on the gathered slot gradients
+        # (gathered beforehand, outside the timing)
+        S = rows.shape[1]
+        cs = col_slot.long()
+        col_group = slots[:, 0].long()[cs]
+        b_idx = torch.arange(B, device=dev)[:, None].expand(B, S)
+        adds = []
+        for g, (R, D) in enumerate(shapes):
+            take = (col_group == g)[None, :] & (rows >= 0)
+            adds.append((rows[take].long(),
+                         gout[b_idx[take], cs.expand(B, S)[take], :D]))
+            del take
+
+        def library(i):
+            for (R, D), (idx, src) in zip(shapes, adds):
+                torch.zeros((R, D), device=dev).index_add_(0, idx, src)
+
+        library_ms = cuda_ms(torch, library, 1, iters=5, warmup=1)
+        del adds, b_idx
+    lanes = B * sum(s.dim for s in plan.fslots) * 4      # gout lanes < D_k
+    grad_bytes = sum(R * D * 4 for R, D in shapes)
+    nbytes = grad_bytes + lanes + rows.numel() * 4 + K * 16
+    bound_ms, bound_by = bound(nbytes, valid_elems, F32_FLOPS_PER_S)
+    touched_ms = (distinct_elems * 4 + lanes + rows.numel() * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    return dict(name="fused_scatter", route="cuda",
+                source="src/repro_torch/kernels/csrc/fused_scatter.cu",
+                replaces="src/repro/kernels/embedding_grad.py:74",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, batch=B,
+                plain_deterministic_ms=plain_det_ms,
+                order_ms=order_ms, kernel_ms=kernel_ms, fill_ms=fill_ms,
+                hot_run_ms=hot_run_ms, longest_run=longest,
+                valid_descriptors=n_valid, distinct_rows=n_distinct,
+                touched_bound_ms=touched_ms, bytes=nbytes,
+                gradient_gb=grad_bytes / 1e9, dataset_batch_s=data_s)
+
+
+def dlrm_train_reference_phase(torch, registry, api, ShapeConfig,
+                               ParallelConfig, OptimizerConfig, STEPS, OPT,
+                               FS, dev="cuda"):
+    """Reduced dlrm0, same weights and batch: one step's gradients on the
+    CPU (plain versions) and on the card (kernels), then Adam on the same
+    gradients."""
+    cfg = registry.get_reduced("dlrm0")
+    p_cpu = api.init_params(cfg, seed=0, device="cpu")
+    b_cpu = api.make_batch(cfg, ShapeConfig("dlrm_check", "train", 1, 64),
+                           seed=1, device="cpu")
+    p_gpu, b_gpu = _to(p_cpu, dev), _to(b_cpu, dev)
+    pcfg = ParallelConfig(remat="none")
+    s0 = FS.launches
+    _, g_cpu = STEPS.value_and_grad(cfg, pcfg, p_cpu, b_cpu)
+    _, g_gpu = STEPS.value_and_grad(cfg, pcfg, p_gpu, b_gpu)
+    torch.cuda.synchronize()
+    check(FS.launches == s0 + 1,
+          "dlrm training reference: the card's backward did not reach the "
+          "fused-scatter kernel")
+    worst = (0.0, 0.0, 0.0)                 # (err / tol, err, tol)
+    for i, (a, b) in enumerate(zip(g_gpu, g_cpu)):
+        check(bool(torch.isfinite(a).all()), f"gradient leaf {i} not finite")
+        tol = LOGIT_REL_TOL * b.abs().max().item()
+        err = (a.cpu() - b).abs().max().item()
+        check(err <= tol, f"dlrm training reference: gradient leaf {i} "
+                          f"differs by {err:.4g} > {tol:.4g}")
+        worst = max(worst, (err / tol if tol else 0.0, err, tol))
+    ocfg = OptimizerConfig(lr=1e-2, warmup_steps=1)
+    with torch.no_grad():
+        p_same = _to(p_gpu, "cpu")
+        g_same = [g.cpu() for g in g_gpu]
+    p1, s1, _ = OPT.apply(ocfg, p_gpu, g_gpu, OPT.init(ocfg, p_gpu))
+    p2, s2, _ = OPT.apply(ocfg, p_same, g_same, OPT.init(ocfg, p_same))
+    adam_err = 0.0
+    for x, y in zip(OPT.leaves([p1, s1.mu, s1.nu]),
+                    OPT.leaves([p2, s2.mu, s2.nu])):
+        err = (x.detach().cpu() - y.detach()).abs()
+        lim = ADAM_RTOL * (y.detach().abs() + y.detach().abs().max())
+        check(bool((err <= lim).all()), f"dlrm training reference: Adam "
+                                        f"differs by {err.max().item():.3e}")
+        adam_err = max(adam_err, err.max().item())
+    return worst, adam_err
+
+
+def train_phase(torch, cfg, ShapeConfig, RunConfig, ParallelConfig,
+                OptimizerConfig, Trainer, STEPS, OPT, FL, FS, dev="cuda",
+                batch=TRAIN_BATCH, warm=TRAIN_WARM, timed=TRAIN_TIMED):
+    """``Trainer.train`` on the one-card training cut, as a user runs it:
+    each step draws its batch from the trainer's ``Dataset`` on the host,
+    moves it to the card and steps.  The ``Dataset.batch`` calls are timed
+    apart; counters are zeroed just before the run and read just after."""
+    run = RunConfig(model=cfg, shape=ShapeConfig("dlrm_train", "train", 1,
+                                                 batch),
+                    parallel=ParallelConfig(remat="none"),
+                    optimizer=OptimizerConfig(lr=3e-4, warmup_steps=20))
+    trainer = Trainer(run, device=dev)
+    n = warm + timed
+    calls, drawn = [], []
+
+    class TimedDataset:             # the trainer's Dataset, calls timed
+        def __init__(self, ds):
+            self.ds = ds
+
+        def batch(self, step):
+            t0 = time.perf_counter()
+            drawn.append(self.ds.batch(step))
+            calls.append(time.perf_counter() - t0)
+            return drawn[-1]
+
+    trainer.dataset = TimedDataset(trainer.dataset)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    first = sorted(state.params["tables"])[0]
+    before = [state.params["tables"][first][:4096].clone(),
+              state.params["top"][0]["w"][:64].clone()]
+    marks = []
+
+    def on_step(step, _):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    FL.launches = FS.launches = 0
+    t_start = time.perf_counter()
+    state = trainer.train(n, state=state, log_every=1, on_step=on_step)
+    launches = {"fused_lookup": FL.launches, "fused_scatter": FS.launches}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip([t_start] + marks[:-1], marks)]
+    losses = [m["loss"] for m in trainer.metrics_log]
+    check(launches["fused_lookup"] == n and launches["fused_scatter"] == n,
+          f"training: {launches} launches for {n} steps (one fused lookup "
+          f"and one fused scatter a step)")
+    check(len(losses) == n and all(math.isfinite(x) for x in losses),
+          f"training: losses {losses}")
+    data_s = list(calls)            # the profiled steps below draw more
+    check(len(data_s) == n, f"training: {len(data_s)} Dataset.batch calls "
+                            f"for {n} steps")
+    after = [state.params["tables"][first][:4096],
+             state.params["top"][0]["w"][:64]]
+    check(all(bool(torch.isfinite(a).all()) and not torch.equal(a, b)
+              for a, b in zip(after, before)),
+          "training: the params did not move (or are not finite)")
+    check(peak < TRAIN_PEAK_LIMIT, f"training: peak allocated "
+                                   f"{peak / 1e9:.2f} GB >= "
+                                   f"{TRAIN_PEAK_LIMIT / 1e9:.0f} GB")
+    timed_s = step_s[warm:]
+    # the same batches staged on the card first: the train step alone
+    staged = [{k: torch.as_tensor(v, device=dev) for k, v in h.items()}
+              for h in drawn[:n]]
+    del drawn[:]
+    torch.cuda.synchronize()
+    card_s = []
+    for b in staged:
+        t0 = time.perf_counter()
+        trainer.train_step(state.params, state.opt_state, b)
+        torch.cuda.synchronize()
+        card_s.append(time.perf_counter() - t0)
+    card_s = card_s[warm:]
+    # one more step, split into forward + backward and Adam
+    b = staged[0]
+    del staged[1:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = STEPS.value_and_grad(cfg, run.parallel, state.params, b)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, opt, _ = OPT.apply(run.optimizer, state.params, grads,
+                          state.opt_state)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del grads
+    state = type(state)(state.params, opt, state.step + 1)
+
+    def user_step():                # Trainer.train: host data included
+        nonlocal state
+        state = trainer.train(state.step + 1, state=state, log_every=1)
+
+    def card_step():                # the train step on a batch on the card
+        trainer.train_step(state.params, state.opt_state, b)
+
+    prof_user = profile_busy(torch, user_step, top=12)
+    prof_card = profile_busy(torch, card_step, top=12)
+    med = sorted(timed_s)[len(timed_s) // 2]
+    med_card = sorted(card_s)[len(card_s) // 2]
+    return {"batch": batch, "steps_warm": warm, "steps_timed": timed,
+            "ms_per_step": [t * 1e3 for t in step_s],
+            "dataset_batch_s": data_s,
+            "median_ms_per_step": med * 1e3,
+            "samples_per_s": batch * len(timed_s) / sum(timed_s),
+            "ms_per_step_staged": [t * 1e3 for t in card_s],
+            "median_ms_per_step_staged": med_card * 1e3,
+            "samples_per_s_staged": batch * len(card_s) / sum(card_s),
+            "losses": losses, "peak_mem_gb": peak / 1e9, "init_s": init_s,
+            "fwd_bwd_ms": (t1 - t0) * 1e3, "adam_ms": (t2 - t1) * 1e3,
+            "profile_user_step": prof_user,
+            "profile_step_on_card": prof_card}, launches
 
 
 def _leaves(tree):
@@ -735,17 +1124,23 @@ def main(argv=None):
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.configs import registry
-    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.base import (OptimizerConfig, ParallelConfig,
+                                          RunConfig, ShapeConfig)
+    from repro_torch.data.synthetic import Dataset
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import embedding_gather as EG
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_lookup as FL
+    from repro_torch.kernels import fused_scatter as FS
     from repro_torch.kernels import ref as REF
+    from repro_torch.launch import steps as STEPS
     from repro_torch.models import api
     from repro_torch.models import dlrm as DL
     from repro_torch.models import transformer as TF
+    from repro_torch.optim import adam as OPT
     from repro_torch.serve import engine as engine_mod
+    from repro_torch.train.trainer import Trainer
 
     # the plain versions compute f32 products: keep TF32 out of them
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -779,6 +1174,34 @@ def main(argv=None):
 
     dlrm_kern, dlrm_stats, dlrm_launches = dlrm_phases(
         torch, F, registry, api, DL, ShapeConfig, FL, EG, REF)
+    gc.collect()                    # the scoring phase's 48 GB of tables
+    torch.cuda.empty_cache()
+
+    grad_worst, adam_err = dlrm_train_reference_phase(
+        torch, registry, api, ShapeConfig, ParallelConfig, OptimizerConfig,
+        STEPS, OPT, FS)
+    log(f"dlrm training reference: card vs CPU gradients differ by at most "
+        f"{grad_worst[1]:.3e} (tolerance {grad_worst[2]:.3e} at that leaf); "
+        f"Adam on the same gradients by {adam_err:.3e}")
+    log(f"fused scatter, small cases: max |kernel - plain| "
+        f"{scatter_small_cases(torch, FS, REF):.3e}; bitwise the CPU's "
+        f"sequential sum; two launches bitwise equal")
+    tcfg = dlrm0_cut(registry, TRAIN_TABLE_PARAMS)
+    tcoll = DL.collection_for(tcfg)
+    scatter = {}
+    for B in (DLRM_CHIP_BATCH, TRAIN_BATCH):
+        scatter[B] = scatter_kernel_phase(torch, tcfg, tcoll, Dataset,
+                                          ShapeConfig, FS, REF, B)
+        log(f"fused scatter at B={B}:", json.dumps(scatter[B]))
+        gc.collect()
+        torch.cuda.empty_cache()
+    train_stats, train_launches = train_phase(
+        torch, tcfg, ShapeConfig, RunConfig, ParallelConfig, OptimizerConfig,
+        Trainer, STEPS, OPT, FL, FS)
+    train_stats["emb_params"] = sum(t.vocab_size * t.dim
+                                    for t in tcfg.dlrm.tables)
+    train_stats["launches"] = train_launches
+    log("dlrm training:", json.dumps(train_stats))
 
     decode["launches"] = launches["paged_decode_attention"]
     prefill["launches"] = launches["flash_attention"]
@@ -786,10 +1209,13 @@ def main(argv=None):
                      for n in ("fused_lookup", "embedding_gather"))
     fused["launches"] = dlrm_launches["fused_lookup"]
     gather["launches"] = dlrm_launches["embedding_gather"]
+    scat = scatter[TRAIN_BATCH]
+    scat["launches"] = train_launches["fused_scatter"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = {"kernels": [{k: kern[k] for k in keys}
-                           for kern in (decode, prefill, fused, gather)]}
+                           for kern in (decode, prefill, fused, gather,
+                                        scat)]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.out:
@@ -798,6 +1224,10 @@ def main(argv=None):
             dict(card=card, serve=stats, reference_worst=worst,
                  build_s=build.build_seconds, dlrm_scoring=dlrm_stats,
                  dlrm_kernels={str(b): v for b, v in dlrm_kern.items()},
+                 dlrm_training=train_stats,
+                 train_reference={"grad_worst": grad_worst,
+                                  "adam_err": adam_err},
+                 fused_scatter={str(b): v for b, v in scatter.items()},
                  **kernels), indent=2))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

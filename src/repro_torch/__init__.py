@@ -5,8 +5,9 @@ imports nothing of it (nor JAX): the JAX package is the reference its tests
 hold it against.  Layout mirrors ``repro`` where a reader wants to find the
 counterpart:
 
-  * `repro_torch.configs` — copies of the dense and DLRM config dataclasses
-                            and an arch registry (olmo-1b, dlrm0)
+  * `repro_torch.configs` — copies of the dense, DLRM and run-level config
+                            dataclasses and an arch registry (olmo-1b, dlrm0)
+  * `repro_torch.data`    — the synthetic, seekable `Dataset`
   * `repro_torch.embeddings` — the single-device embedding engine (fused
                             and per-table lookups) and its placement plan
   * `repro_torch.kernels` — hand-written CUDA kernels for sm_90a, their
@@ -14,15 +15,18 @@ counterpart:
   * `repro_torch.models`  — dense transformer layers, prefill/decode, the
                             DLRM forward, `api`
   * `repro_torch.serve`   — continuous-batching `ServeEngine` + `SliceSpec`
-  * `repro_torch.launch`  — the ``python -m repro_torch.launch.serve`` CLI
+  * `repro_torch.optim`   — Adam / AdamW, in place
+  * `repro_torch.train`   — the DLRM `Trainer`
+  * `repro_torch.launch`  — the train step and the ``python -m
+                            repro_torch.launch.serve`` / ``.train`` CLIs
   * `repro_torch.interop` — JAX param trees (as numpy) -> torch tensors
 
 Subpackages import lazily (module ``__getattr__``), as in ``repro``.
 """
 import importlib
 
-__all__ = ["configs", "embeddings", "interop", "kernels", "launch", "models",
-           "serve"]
+__all__ = ["configs", "data", "embeddings", "interop", "kernels", "launch",
+           "models", "optim", "serve", "train"]
 
 
 def __getattr__(name):

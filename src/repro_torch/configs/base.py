@@ -2,14 +2,15 @@
 
 Copies of ``repro.configs.base.ShapeConfig``, ``AttentionConfig``,
 ``EmbeddingTableConfig``, ``DLRMConfig`` and ``ModelConfig``, the last cut
-to the fields a dense decoder or a DLRM reads.  The port keeps its own
+to the fields a dense decoder or a DLRM reads, and of the run-level
+``ParallelConfig``, ``OptimizerConfig`` and ``RunConfig``, whole.  The port keeps its own
 copy instead of importing the JAX package; ``tests/test_torch_interop.py``
 holds every kept field equal to the reference config.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
@@ -103,4 +104,67 @@ class ModelConfig:
         return self.attention.head_dim
 
     def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Run-level config (parallelism + training knobs), consumed by launch/*
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    # axis names must match the mesh axes
+    data_axis: str = "data"
+    model_axis: str = "model"
+    pod_axis: Optional[str] = None     # None on single-pod meshes
+    fsdp: bool = True                  # shard params over data axis (ZeRO-3 style)
+    zero1: bool = True                 # shard optimizer state over data axis
+    tensor_parallel: bool = True       # shard heads/ffn/vocab over model axis
+    expert_parallel: bool = True       # shard experts over model axis (MoE)
+    sequence_parallel: bool = True     # shard long sequences / KV over model axis
+    # Table 3 hyperparameter: activation/weight partitioning dimensionality
+    activation_partition: str = "1d"   # "1d" | "2d"
+    weight_partition: str = "1d"       # "1d" | "2d"
+    pipeline_stages: int = 1           # >1 maps pipeline onto pod axis
+    remat: str = "block"               # "none" | "block" | "full"
+    grad_compression: str = "none"     # "none" | "int8" | "topk"
+    overlap_decomposition: int = 1     # >1: split matmuls to overlap collectives
+    use_sparse_embed: bool = True      # SparseCore-style vocab embedding path
+    # compute the LM loss in sequence chunks so the (tokens x vocab) logits
+    # tensor never materialises
+    xent_chunk: int = 0                # 0 = off (materialise full logits)
+    # cast FSDP-gathered weights to bf16 BEFORE the all-gather
+    bf16_fsdp_gather: bool = False
+    # attention implementation: "qchunked" scans only the reachable
+    # (q-chunk, kv-chunk) pairs
+    attn_impl: str = "blocked"         # "blocked" | "qchunked"
+    # SparseCore embedding exchange knobs
+    emb_wire_bf16: bool = False        # bf16 vectors on the ICI wire
+    emb_capacity_factor: float = 2.0   # all-to-all send slot provisioning
+    emb_method: str = "auto"           # "auto" | "a2a" | "psum"
+    emb_pipeline: bool = True          # fused multi-group pipelined executor
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adam"                 # "adam" | "adafactor" | "sgd"
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    state_dtype: str = "float32"       # "bfloat16" for the 1T config
+    warmup_steps: int = 100
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    seed: int = 0
+
+    def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)

@@ -33,10 +33,13 @@ Kernels
 -------
 The JAX ``use_kernel`` flag is dropped: as in ``kernels/ops.py``, the
 device of the tensors decides.  CUDA tensors go to the hand-written
-kernels (``kernels/fused_lookup.py``, ``kernels/embedding_gather.py``),
-which are forward only and raise when a gradient is asked of them; CPU
-tensors go to their plain versions (``kernels/ref.py``), which autograd
-differentiates.
+kernels, CPU tensors to their plain versions (``kernels/ref.py``).  The
+fused route runs through ``ops.FusedLookup``, the reference's
+``custom_vjp``: the fused-lookup kernel forward, the fused-scatter kernel
+backward, so gradients reach the ``local_d{D}`` row spaces where they
+lie.  The per-table gather kernel is forward only, as in the reference,
+and raises when a gradient is asked of it; its plain version on the CPU
+is differentiated by autograd.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): the distributed psum / all-to-all exchanges (queue 1, item 12) and
@@ -95,23 +98,30 @@ class FusedSlot:
 class FusedPlan:
     """The descriptor layout for one set of feature widths: slots ordered
     by valency, the params key of each row space, and the kernel's
-    ``slots`` table and per-column row offsets (host lists; `on` gives
-    them as int32 tensors on a device, cached)."""
+    ``slots`` table, per-column row offsets and per-column slot (host
+    lists; `on` gives them as int32 tensors on a device, cached)."""
     fslots: List[FusedSlot]
     keys: List[str]                       # row space of each group index
     slot_table: List[Tuple[int, int, int, int]]   # (group, a, b, mean)
     col_offsets: List[int]                # (S,) table offset per column
+    col_slot: List[int]                   # (S,) slot of each column
     dmax: int
-    _dev: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = \
+    _dev: Dict[torch.device, Tuple[torch.Tensor, ...]] = \
         field(default_factory=dict)
 
-    def on(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    def on(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
+        """(slot table (K, 4), column offsets (S,), column slots (S,))."""
         if device not in self._dev:
-            self._dev[device] = (
-                torch.tensor(self.slot_table, dtype=torch.int32,
-                             device=device).reshape(-1, 4),
-                torch.tensor(self.col_offsets, dtype=torch.int32,
-                             device=device))
+            # normal tensors even when first asked for under inference_mode:
+            # a later training step saves the slot tables for its backward
+            with torch.inference_mode(False):
+                self._dev[device] = (
+                    torch.tensor(self.slot_table, dtype=torch.int32,
+                                 device=device).reshape(-1, 4),
+                    torch.tensor(self.col_offsets, dtype=torch.int32,
+                                 device=device),
+                    torch.tensor(self.col_slot, dtype=torch.int32,
+                                 device=device))
         return self._dev[device]
 
 
@@ -253,17 +263,18 @@ class EmbeddingCollection:
             (g.total_rows for g, _ in units), initial=0))
         entries, _ = self.fused_entries(which)
         entries = sorted(entries, key=lambda e: features[e[0]].shape[1])
-        fslots, table, col_off = [], [], []
+        fslots, table, col_off, col_slot = [], [], [], []
         c0 = 0
-        for name, comb, dim, row_base in entries:
+        for k, (name, comb, dim, row_base) in enumerate(entries):
             vl = features[name].shape[1]
             gi = bisect.bisect_right(starts, row_base) - 1
             fslots.append(FusedSlot(name, comb, dim, row_base, (c0, c0 + vl)))
             table.append((gi, c0, c0 + vl, int(comb == "mean")))
             col_off += [row_base - starts[gi]] * vl
+            col_slot += [k] * vl
             c0 += vl
         plan = FusedPlan(fslots, [k for _, k in units], table, col_off,
-                         max((g.dim for g, _ in units), default=0))
+                         col_slot, max((g.dim for g, _ in units), default=0))
         self._plans[key] = plan
         return plan
 
@@ -272,7 +283,7 @@ class EmbeddingCollection:
         spaces, rows (B, S) int32 group-local ids, slots (K, 4) int32)."""
         plan = self._fused_plan(features, which)
         ids = torch.cat([features[s.name] for s in plan.fslots], dim=1)
-        slot_table, col_off = plan.on(ids.device)
+        slot_table, col_off, _ = plan.on(ids.device)
         rows = torch.where(ids >= 0, ids + col_off, -1).to(torch.int32)
         return plan, [params[k] for k in plan.keys], rows, slot_table
 
@@ -282,8 +293,12 @@ class EmbeddingCollection:
         if not self._fused_plan(features, which).fslots:
             return {}
         plan, groups, rows, slots = self.fused_inputs(params, features, which)
-        out3 = ops.fused_lookup(groups, rows, slots, plan.dmax)
-        return {s.name: out3[:, i, :s.dim]
+        out3 = ops.FusedLookup.apply(rows, slots, plan.on(rows.device)[2],
+                                     plan.dmax, *groups)
+        # unbind, then slice: the backward stacks (B, dmax) slot gradients
+        # once instead of one (B, K, dmax) zero buffer per table
+        cols = out3.unbind(1)
+        return {s.name: cols[i][:, :s.dim]
                 for i, s in enumerate(plan.fslots)}
 
     # -- lookup ---------------------------------------------------------------

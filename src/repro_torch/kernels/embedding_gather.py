@@ -8,7 +8,8 @@ it once per table and batch.
 Bound on the H100: bytes (a copy: valid rows read once, the output written
 once).  One thread moves one 16-byte chunk of an output row, so reads of a
 table row and writes of the output are both coalesced.  Forward only, as
-``fused_lookup``.  `embedding_gather` launches the kernel on CUDA tensors
+the reference's (``gather_kernel_call`` has no VJP): a call that would
+need a gradient raises, and training goes through the fused route.  `embedding_gather` launches the kernel on CUDA tensors
 and raises on anything it does not take; ``ops`` sends CPU tensors to the
 plain version in ``ref``.  ``launches`` counts successful launches.
 """
@@ -16,10 +17,22 @@ from __future__ import annotations
 
 import torch
 
+from typing import Sequence
+
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_lookup import no_gradient
 
 launches = 0           # kernel launches in this process
+
+
+def no_gradient(name: str, tables: Sequence[torch.Tensor]) -> None:
+    """Raise if autograd would need a gradient of ``tables`` from this
+    forward-only kernel (the port never returns a silent zero gradient)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
+        raise NotImplementedError(
+            f"{name}: the per-table gather kernel route is forward only, as "
+            f"in the reference (its gather kernel has no backward); train "
+            f"through the fused route (lookup(fused=True)), or run under "
+            f"torch.no_grad() / inference_mode(), or on the CPU")
 
 
 def embedding_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

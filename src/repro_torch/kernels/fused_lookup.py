@@ -14,8 +14,8 @@ made.  One warp per (sample, table) walks the table's descriptor columns
 in order with f32 sums in registers, so the result does not change from
 run to run.  See the source for the design.
 
-Forward only: the backward (``fused_scatter_kernel_call``) is ROADMAP.md
-queue 2, item 6, so a call that would need a gradient raises.
+Its gradient is ``ops.FusedLookup``'s, whose backward launches the
+fused-scatter kernel (``fused_scatter.py``).
 `fused_lookup` launches the kernel on CUDA tensors and raises on anything
 it does not take; ``ops`` sends CPU tensors to the plain version in
 ``ref``.  ``launches`` counts successful launches.
@@ -33,16 +33,6 @@ MAX_GROUPS = 128       # row spaces one launch addresses (csrc MAXG)
 MAX_DIM = 512          # widest output row (csrc: 128 lanes * 4 chunks)
 
 launches = 0           # kernel launches in this process
-
-
-def no_gradient(name: str, tables: Sequence[torch.Tensor]) -> None:
-    """Raise if autograd would need a gradient of ``tables`` from a
-    forward-only kernel (the port never returns a silent zero gradient)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
-        raise NotImplementedError(
-            f"{name}: the CUDA embedding kernels are forward only; the "
-            f"backward kernel (fused_scatter) is ROADMAP.md queue 2, item 6. "
-            f"Run under torch.no_grad() / inference_mode(), or on the CPU")
 
 
 def fused_lookup(groups: Sequence[torch.Tensor], rows: torch.Tensor,
@@ -73,7 +63,6 @@ def fused_lookup(groups: Sequence[torch.Tensor], rows: torch.Tensor,
                          f"[4, {MAX_DIM}]")
     if len({t.device for t in groups} | {rows.device, slots.device}) != 1:
         raise ValueError("groups, rows and slots must be on one device")
-    no_gradient("fused_lookup", groups)
     B, S = rows.shape
     K = slots.shape[0]
     out = torch.empty((B, K, dmax), dtype=torch.float32, device=rows.device)

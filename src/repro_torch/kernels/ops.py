@@ -4,15 +4,23 @@ The choice follows the device of the tensors given: a CPU tensor goes to
 the plain PyTorch version (``ref``); a CUDA tensor goes to the hand-written
 kernel, and if its build, load or launch fails the call raises.  There is
 no fallback from the card to the plain version.
+
+`FusedLookup` is the port's counterpart of the reference's
+``ops.fused_lookup`` ``custom_vjp``: the fused lookup forward, the fused
+scatter backward, each dispatched the same way.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import embedding_gather as EG
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_lookup as FL
+from repro_torch.kernels import fused_scatter as FS
 from repro_torch.kernels import ref as REF
 
 
@@ -63,3 +71,56 @@ def embedding_gather(table, ids):
     if _device_type(table, ids) == "cuda":
         return EG.embedding_gather(table, ids)
     return REF.embedding_gather_ref(table, ids)
+
+
+def fused_scatter(gout, rows, slots, col_slot,
+                  shapes: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """gout (B, K, dmax) slot gradients (scaled for mean slots); rows
+    (B, S) group-local ids; slots (K, 4); col_slot (S,) slot of each
+    column -> one (R_g, D_g) gradient per row space of ``shapes``."""
+    if _device_type(gout, rows, slots, col_slot) == "cuda":
+        return FS.fused_scatter(gout, rows, slots, col_slot, shapes)
+    return REF.fused_scatter_ref(gout, rows, slots, shapes, col_slot)
+
+
+def _mean_scaled(g, rows, slots):
+    """``g`` (B, K, dmax) with each mean slot's rows divided by its count
+    of valid ids, floored at 1 (the reference's ``_fused_lookup_bwd``:
+    f32, times the reciprocal).  Counts come from a prefix sum over the
+    descriptor columns, so no host sync is needed."""
+    S = rows.shape[1]
+    csum = F.pad((rows >= 0).to(torch.int32).cumsum(dim=1), (1, 0))
+    a = slots[:, 1].long().clamp(0, S)
+    b = torch.maximum(slots[:, 2].long().clamp(0, S), a)
+    cnt = (csum[:, b] - csum[:, a]).float()                 # (B, K)
+    scale = torch.where(slots[:, 3][None, :] != 0,
+                        1.0 / cnt.clamp_min(1.0), 1.0)
+    return (g.float() * scale[..., None]).contiguous()
+
+
+class FusedLookup(torch.autograd.Function):
+    """Differentiable one-launch multi-table lookup:
+    ``FusedLookup.apply(rows, slots, col_slot, dmax, *groups)`` ->
+    (B, K, dmax); ``col_slot`` (S,) int32 is `ref.column_slots` of
+    ``slots``, which the caller caches with its layout.
+
+    Forward: `fused_lookup`.  Backward: the mean scaling of
+    `_mean_scaled`, then `fused_scatter`; gradients flow to the row spaces
+    only (None for ``rows``, ``slots``, ``col_slot`` and ``dmax``).  Both
+    halves dispatch by device: the kernels on the card, the plain versions
+    on the CPU."""
+
+    @staticmethod
+    def forward(ctx, rows, slots, col_slot, dmax, *groups):
+        ctx.save_for_backward(rows, slots, col_slot)
+        ctx.shapes = [tuple(g.shape) for g in groups]
+        return fused_lookup(groups, rows, slots, dmax)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, slots, col_slot = ctx.saved_tensors
+        if not any(ctx.needs_input_grad[4:]):
+            return (None,) * (4 + len(ctx.shapes))
+        grads = fused_scatter(_mean_scaled(g, rows, slots), rows, slots,
+                              col_slot, ctx.shapes)
+        return (None, None, None, None, *grads)

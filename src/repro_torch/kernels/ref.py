@@ -2,9 +2,10 @@
 
 Ports of ``repro/kernels/ref.py`` ``paged_decode_attention_ref``,
 ``flash_attention_ref`` and ``embedding_gather_ref`` (same arguments, same
-masking contract, f32 math), and ``fused_lookup_ref`` in the layout the
-port's fused-lookup kernel takes: the width-groups' row spaces where they
-lie, not one padded copy of them.  ``ops`` sends CPU tensors here; the
+masking contract, f32 math), and ``fused_lookup_ref`` and
+``fused_scatter_ref`` in the layout the port's fused-lookup and
+fused-scatter kernels take: the width-groups' row spaces where they lie,
+not one padded copy of them.  ``ops`` sends CPU tensors here; the
 CUDA kernels are held against these on the card (``chip_smoke.py``,
 ``tests/test_torch_cuda.py``) and these against JAX on the CPU
 (``tests/test_torch_kernels_ref.py``, ``tests/test_torch_embeddings.py``).
@@ -12,7 +13,7 @@ They are differentiable by autograd.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -107,3 +108,44 @@ def fused_lookup_ref(groups: Sequence[torch.Tensor], rows, slots, dmax: int):
     if not out:
         return torch.zeros((B, 0, dmax), device=rows.device)
     return torch.stack(out, dim=1)
+
+
+def column_slots(slots, S: int):
+    """(K, 4) slot table -> (S,) int64: the slot whose span holds each
+    descriptor column, -1 for a column no span holds (the reference's (S,)
+    slot stream).  Spans are disjoint in every layout the engine builds;
+    where two overlap, the higher slot index wins."""
+    col = torch.full((S,), -1, dtype=torch.int64, device=slots.device)
+    for k, (_, a, b, _) in enumerate(slots.tolist()):
+        col[max(a, 0):max(min(b, S), 0)] = k
+    return col
+
+
+def fused_scatter_ref(gout, rows, slots, shapes: Sequence[Tuple[int, int]],
+                      col_slot=None) -> List[torch.Tensor]:
+    """Backward of `fused_lookup_ref`.  gout (B, K, dmax) f32 slot
+    gradients, already scaled for mean slots; rows (B, S) int group-local
+    row ids (-1 invalid); slots (K, 4) int (group, col a, col b, mean);
+    shapes: (R_g, D_g) of each row space; col_slot: `column_slots` of
+    ``slots`` (derived when not given) -> one (R_g, D_g) f32 gradient
+    per row space: every valid descriptor (b, s) adds ``gout[b, k(s),
+    :D_g]`` into its row, in (b, s) order (``index_add_``, sequential on
+    the CPU).  An id at or past R_g is dropped, as JAX's scatter drops an
+    out-of-bounds update.
+
+    Equals ``repro.kernels.ref.fused_scatter_ref`` over the groups padded
+    to ``dmax`` lanes and concatenated, sliced back into groups."""
+    B, S = rows.shape
+    col_slot = (column_slots(slots, S) if col_slot is None
+                else col_slot.long())
+    col_group = torch.where(col_slot >= 0,
+                            slots[:, 0].long()[col_slot.clamp_min(0)], -1)
+    b_idx = torch.arange(B, device=rows.device)[:, None].expand(B, S)
+    out = []
+    for g, (R, D) in enumerate(shapes):
+        grad = torch.zeros((R, D), dtype=torch.float32, device=gout.device)
+        take = (col_group == g)[None, :] & (rows >= 0) & (rows < R)
+        src = gout[b_idx[take], col_slot.expand(B, S)[take], :D]
+        grad.index_add_(0, rows[take].long(), src.float())
+        out.append(grad)
+    return out

@@ -1,6 +1,6 @@
 """DLRM0 — the paper's production recommendation workload (§3, Figs 8-10).
 
-Port of ``repro/models/dlrm.py``, single device, scoring (forward) path.
+Port of ``repro/models/dlrm.py``, single device: scoring and training.
 Sparse stack (SparseCore): `EmbeddingCollection.lookup` — the fused
 one-launch descriptor lookup by default, or one gather per table with
 ``fused=False``.  Dense stack (TensorCore): bottom MLP over the dense
@@ -9,8 +9,10 @@ computes in bf16, as the reference does, and returns f32 logits.
 
 Params keep the reference's layout (``tables`` -> row spaces, ``bottom``
 and ``top`` -> lists of ``{"w", "b"}``), so JAX weights come over through
-``repro_torch.interop``.  Training (the backward kernel, Adam, the train
-step) is ROADMAP.md's next slice: `loss_fn` gives the forward value only.
+``repro_torch.interop``.  `loss_fn` is differentiable end to end: on the
+fused route the table gradients come from the fused-scatter kernel
+(``kernels/ops.FusedLookup``); ``launch/steps.make_train_step`` and
+``train/trainer.Trainer`` train on it.
 """
 from __future__ import annotations
 
@@ -106,8 +108,9 @@ def forward(cfg: ModelConfig, p, batch, *,
 def loss_fn(cfg: ModelConfig, p, batch, *,
             coll: Optional[EmbeddingCollection] = None,
             fused: bool = True):
-    """Mean binary cross-entropy on the logits (the forward value only;
-    the CUDA lookup kernels have no backward yet)."""
+    """Mean binary cross-entropy on the logits -> (loss, aux 0.0).
+    Differentiable with respect to every param; on the card only through
+    the fused route (the per-table gather kernel is forward only)."""
     logits, aux = forward(cfg, p, batch, coll=coll, fused=fused)
     labels = batch["labels"].float()
     loss = torch.mean(torch.clamp_min(logits, 0) - logits * labels

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version, the wrappers' input checks and launch counts, the engine's
-chunk invariance through the kernels, and the DLRM forward through the
-embedding kernels (which raise when a gradient is asked of them).
+chunk invariance through the kernels, the DLRM forward through the
+embedding kernels, and DLRM training through the fused lookup and the
+fused scatter (its backward) against the CPU.
 
 Every test needs an sm_90 card and skips elsewhere.  This file imports no
 JAX, so it runs where JAX is not installed:
@@ -16,8 +17,15 @@ reordering: ATOL = RTOL = 1e-2.  The embedding kernels are f32 in and out:
 the fused lookup adds a slot's rows in column order and the plain version
 with torch.sum's tree, at most 128 rows of N(0, 1) values, so they agree
 to EMB_ATOL = EMB_RTOL = 1e-5; the row gather is a copy and agrees
-exactly.  DLRM logits (bf16 tower, cuBLAS vs the CPU's matmuls) agree to
-2^-5 of the largest |logit|.
+exactly.  The fused scatter sums each row's descriptors in (b, s) order,
+one f32 add at a time, as the plain version's ``index_add_`` does on the
+CPU, and as it does on the card under ``torch.use_deterministic_algorithms``
+(a stable sort of the indices, then each row's duplicates in order): the
+kernel is bitwise equal to both; against the plain version on the card
+by default (atomic adds, in any order) it agrees to SCATTER_TOL = 1e-5 of
+each row space's largest |gradient|.  DLRM logits and gradients (bf16 tower,
+cuBLAS vs the CPU's matmuls) agree to 2^-5 of the largest |value|; Adam
+on the same gradients to ADAM_RTOL = 1e-6 of each leaf's largest |x|.
 """
 import numpy as np
 import pytest
@@ -29,15 +37,21 @@ from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import embedding_gather as EG
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_lookup as FL
+from repro_torch.kernels import fused_scatter as FS
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as REF
 from repro_torch.models import api
+from repro_torch.configs.base import OptimizerConfig, ParallelConfig
+from repro_torch.launch import steps as STEPS
 from repro_torch.models import dlrm as DL
+from repro_torch.optim import adam as OPT
 from repro_torch.serve.engine import ServeEngine, SliceSpec
 
 ATOL = RTOL = 1e-2
 EMB_ATOL = EMB_RTOL = 1e-5
 LOGIT_REL_TOL = 2.0 ** -5
+SCATTER_TOL = 1e-5
+ADAM_RTOL = 1e-6
 
 pytestmark = pytest.mark.cuda
 
@@ -257,26 +271,151 @@ def test_ops_routes_cuda_tensors_to_the_embedding_kernels(card):
 
 
 def test_embedding_kernels_raise_when_a_gradient_is_asked(card):
+    """The per-table gather kernel is forward only (as the reference's)
+    and raises when a gradient is asked; the fused route gives one, through
+    the fused-scatter kernel, equal to the CPU's."""
     rng = np.random.default_rng(4)
     groups, rows, slots = _fused_inputs(rng, card, (8, 16),
                                         [(0, 3, 0), (1, 2, 1)], 4)
     leaf = groups[0].clone().requires_grad_(True)
-    f0, g0 = FL.launches, EG.launches
-    with pytest.raises(NotImplementedError, match="queue 2, item 6"):
-        FL.fused_lookup([leaf, groups[1]], rows, slots, 16)
-    with pytest.raises(NotImplementedError, match="queue 2, item 6"):
+    g0 = EG.launches
+    with pytest.raises(NotImplementedError, match="forward only"):
         EG.embedding_gather(leaf, rows)
-    assert (FL.launches, EG.launches) == (f0, g0)
-    with torch.no_grad():                # no gradient asked: it runs
-        FL.fused_lookup([leaf, groups[1]], rows, slots, 16)
-    # through the model: a DLRM whose tables require grad
+    assert EG.launches == g0
+    f0, s0 = FL.launches, FS.launches
+    cs = REF.column_slots(slots, rows.shape[1]).int()
+    out = ops.FusedLookup.apply(rows, slots, cs, 16, leaf, groups[1])
+    ct = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(
+        np.float32)).to(card)
+    out.backward(ct)
+    assert (FL.launches, FS.launches) == (f0 + 1, s0 + 1)
+    cpu = [g.cpu().requires_grad_(True) for g in (leaf.detach(), groups[1])]
+    ops.FusedLookup.apply(rows.cpu(), slots.cpu(), cs.cpu(), 16,
+                          *cpu).backward(ct.cpu())
+    torch.testing.assert_close(leaf.grad.cpu(), cpu[0].grad, atol=EMB_ATOL,
+                               rtol=EMB_RTOL)
+    # through the model: the per-table route raises, the fused one trains
     cfg = registry.get_reduced("dlrm0")
     p = api.init_params(cfg, seed=0, device=card)
     p["tables"] = {k: v.requires_grad_(True) for k, v in p["tables"].items()}
     batch = api.make_batch(cfg, ShapeConfig("x", "train", 1, 8), device=card)
-    for fused in (True, False):
-        with pytest.raises(NotImplementedError, match="queue 2, item 6"):
-            api.forward(cfg, p, batch, fused=fused)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        api.forward(cfg, p, batch, fused=False)
+    loss, _ = DL.loss_fn(cfg, p, batch)
+    loss.backward()
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+               for t in p["tables"].values())
+
+
+def _scatter_inputs(rng, dev, dims, spec, B):
+    groups, rows, slots = _fused_inputs(rng, dev, dims, spec, B)
+    dmax = max(dims)
+    gout = torch.from_numpy(rng.standard_normal(
+        (B, len(spec), dmax)).astype(np.float32)).to(dev)
+    col_slot = REF.column_slots(slots, rows.shape[1]).int()
+    return gout, rows, slots, col_slot, [tuple(g.shape) for g in groups]
+
+
+SCATTER_CASES = FUSED_CASES + [
+    ((8, 4), [(1, 3, 1), (0, 6, 0), (1, 1, 0), (0, 2, 1), (1, 9, 0)], 64),
+]
+
+
+@pytest.mark.parametrize("dims,spec,B", SCATTER_CASES, ids=str)
+def test_fused_scatter_kernel_matches_plain(card, dims, spec, B):
+    rng = np.random.default_rng(B + 1)
+    gout, rows, slots, cs, shapes = _scatter_inputs(rng, card, dims, spec, B)
+    s0 = FS.launches
+    got = FS.fused_scatter(gout, rows, slots, cs, shapes)
+    torch.cuda.synchronize()
+    assert FS.launches == s0 + 1
+    want_cpu = REF.fused_scatter_ref(gout.cpu(), rows.cpu(), slots.cpu(),
+                                     shapes)
+    want_card = REF.fused_scatter_ref(gout, rows, slots, shapes)
+    torch.use_deterministic_algorithms(True)
+    try:
+        want_ordered = REF.fused_scatter_ref(gout, rows, slots, shapes, cs)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for g, wc, wg, wo in zip(got, want_cpu, want_card, want_ordered):
+        assert torch.equal(g.cpu(), wc) and torch.equal(g, wo)
+        torch.testing.assert_close(g, wg, rtol=0, atol=SCATTER_TOL * max(
+            wg.abs().max().item(), 1.0))
+
+
+def test_fused_scatter_sums_a_hot_row_in_order_and_deterministically(card):
+    """One row named 10,000 times in a row (a valency-1 slot), beside a
+    slot of random ids and invalid descriptors: the kernel equals the
+    sequential sum, and two launches give the same bits."""
+    rng = np.random.default_rng(7)
+    B = 10_000
+    gout, rows, slots, cs, shapes = _scatter_inputs(
+        rng, card, (32, 256), [(0, 1, 0), (1, 5, 1), (0, 3, 0)], B)
+    rows[:, 0] = 3
+    rows[::7, 1:4] = -1
+    a = FS.fused_scatter(gout, rows, slots, cs, shapes)
+    b = FS.fused_scatter(gout, rows, slots, cs, shapes)
+    want = REF.fused_scatter_ref(gout.cpu(), rows.cpu(), slots.cpu(), shapes)
+    for x, y, w in zip(a, b, want):
+        assert torch.equal(x, y) and torch.equal(x.cpu(), w)
+    assert a[0][3].abs().max().item() > 0
+
+
+def test_fused_scatter_wrapper_rejects_what_the_kernel_does_not_take(card):
+    rng = np.random.default_rng(8)
+    gout, rows, slots, cs, shapes = _scatter_inputs(
+        rng, card, (8, 16), [(0, 3, 0), (1, 2, 1)], 4)
+    with pytest.raises(ValueError, match="float32"):
+        FS.fused_scatter(gout.double(), rows, slots, cs, shapes)
+    with pytest.raises(ValueError, match="int32"):
+        FS.fused_scatter(gout, rows.long(), slots, cs, shapes)
+    with pytest.raises(ValueError, match=r"\(K, 4\)"):
+        FS.fused_scatter(gout, rows, slots[:1], cs, shapes)
+    with pytest.raises(ValueError, match=r"\(S,\)"):
+        FS.fused_scatter(gout, rows, slots, cs[:-1], shapes)
+    with pytest.raises(ValueError, match="int32"):
+        FS.fused_scatter(gout, rows, slots, cs.long(), shapes)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        FS.fused_scatter(gout, rows, slots, cs, [(5, 6), shapes[1]])
+    with pytest.raises(ValueError, match="2\\^31"):
+        FS.fused_scatter(gout, rows, slots, cs, [(2 ** 31, 8), shapes[1]])
+    with pytest.raises(ValueError, match="CUDA"):
+        FS.fused_scatter(gout.cpu(), rows, slots, cs, shapes)
+
+
+def _to(tree, dev):
+    return OPT.tree_map(lambda t: t.detach().to(dev), tree)
+
+
+def test_dlrm_train_step_on_card_matches_cpu(card):
+    """Reduced dlrm0, same weights and batch: the card's gradients (fused
+    lookup + fused scatter) against the CPU's, then Adam on the same
+    gradients, then a few Trainer steps with finite losses."""
+    cfg = registry.get_reduced("dlrm0")
+    p = api.init_params(cfg, seed=0, device="cpu")
+    batch = api.make_batch(cfg, ShapeConfig("x", "train", 1, 64), seed=1,
+                           device="cpu")
+    pg, bg = _to(p, card), _to(batch, card)
+    pcfg = ParallelConfig(remat="none")
+    s0 = FS.launches
+    _, g_cpu = STEPS.value_and_grad(cfg, pcfg, p, batch)
+    _, g_card = STEPS.value_and_grad(cfg, pcfg, pg, bg)
+    torch.cuda.synchronize()
+    assert FS.launches == s0 + 1
+    for a, b in zip(g_card, g_cpu):
+        tol = LOGIT_REL_TOL * b.abs().max().item()
+        assert (a.cpu() - b).abs().max().item() <= tol
+    ocfg = OptimizerConfig(lr=1e-2, warmup_steps=1)
+    g_same = [g.cpu() for g in g_card]
+    with torch.no_grad():
+        pc = _to(pg, "cpu")
+    p1, s1, _ = OPT.apply(ocfg, pg, g_card, OPT.init(ocfg, pg))
+    p2, s2, _ = OPT.apply(ocfg, pc, g_same, OPT.init(ocfg, pc))
+    for x, y in zip(OPT.leaves([p1, s1.mu, s1.nu]),
+                    OPT.leaves([p2, s2.mu, s2.nu])):
+        torch.testing.assert_close(x.detach().cpu(), y.detach(),
+                                   rtol=ADAM_RTOL,
+                                   atol=ADAM_RTOL * y.abs().max().item())
 
 
 def test_dlrm_forward_on_card_matches_cpu(card):

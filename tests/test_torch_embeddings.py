@@ -3,14 +3,20 @@ versions of its two lookup kernels (``repro_torch/kernels/ref.py``)
 against the JAX package: placement plan and storage layout, the fused
 lookup against the Pallas kernel in interpret mode and its jnp oracle,
 the row gather against its Pallas kernel, both lookup routes against
-``EmbeddingCollection.lookup(use_kernel=True)``, and gradients through
-the plain versions against ``jax.grad``.
+``EmbeddingCollection.lookup(use_kernel=True)``, gradients through the
+plain versions against ``jax.grad``, the fused scatter (the fused
+lookup's backward) against its Pallas kernel and oracle, and
+``ops.FusedLookup``'s gradient against ``jax.vjp`` of the reference's
+``ops.fused_lookup`` ``custom_vjp``.
 
 Inputs come from one numpy seed per case and tables are handed over as
 numpy.  Tolerance: f32 in, f32 out; the port and the reference add a
 slot's rows in other orders, so they agree to ATOL = RTOL = 2e-5 (about
 100 f32 ulps at unit scale), as in ``tests/test_torch_kernels_ref.py``.
-The row gather is a copy and must agree exactly.
+The row gather is a copy and must agree exactly.  The fused scatter adds
+in (b, s) order in both frameworks: SCATTER_RTOL = 1e-6 of each leaf's
+largest |gradient|; through ``FusedLookup`` (mean scaling, then the
+scatter) VJP_TOL = 1e-5.
 """
 import dataclasses
 
@@ -25,6 +31,8 @@ from repro.configs.base import EmbeddingTableConfig as JTable
 from repro.embeddings import engine as JENG
 from repro.embeddings import sharding as JSH
 from repro.kernels import ref as JREF
+from repro.kernels import ops as JOPS
+from repro.kernels.embedding_grad import fused_scatter_kernel_call
 from repro.kernels.embedding_lookup import (fused_lookup_kernel_call,
                                             gather_kernel_call)
 from repro_torch.configs.base import EmbeddingTableConfig as TTable
@@ -32,10 +40,13 @@ from repro_torch.embeddings import engine as TENG
 from repro_torch.embeddings import sharding as TSH
 from repro_torch.kernels import embedding_gather as TEG
 from repro_torch.kernels import fused_lookup as TFL
+from repro_torch.kernels import fused_scatter as TFS
 from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import ref as TREF
 
 ATOL = RTOL = 2e-5
+SCATTER_RTOL = 1e-6
+VJP_TOL = 1e-5
 
 
 def _close(got, want, atol=ATOL, rtol=RTOL):
@@ -387,4 +398,128 @@ def test_ops_sends_cpu_tensors_to_plain_versions():
         TFL.fused_lookup(g, r, s, 16)
     with pytest.raises(ValueError, match="CUDA"):
         TEG.embedding_gather(g[0], r)
-    assert TFL.launches == 0 and TEG.launches == 0
+    gout = torch.ones((4, 2, 16))
+    shapes = [tuple(x.shape) for x in g]
+    cs = TREF.column_slots(s, r.shape[1]).int()
+    assert all(torch.equal(a, b) for a, b in zip(
+        TOPS.fused_scatter(gout, r, s, cs, shapes),
+        TREF.fused_scatter_ref(gout, r, s, shapes)))
+    with pytest.raises(ValueError, match="CUDA"):
+        TFS.fused_scatter(gout, r, s, cs, shapes)
+    assert TFL.launches == 0 and TEG.launches == 0 and TFS.launches == 0
+
+
+# the fused scatter's cases: the lookup's, plus widths 4 and 8 (the
+# reduced config's) with rows that repeat across samples and slots
+SCATTER_CASES = dict(FUSED_CASES, widths_4_8=(
+    (4, 8), [(1, 3, 1), (0, 6, 0), (1, 1, 0), (0, 2, 1), (1, 9, 0)], 6))
+
+
+def _scatter_close(got, want):
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(g.detach().numpy(), w, rtol=0,
+                                   atol=SCATTER_RTOL * np.abs(w).max())
+
+
+def _by_group(dtable, groups):
+    """The reference's (R, dmax) gradient sliced back into row spaces."""
+    dtable = np.asarray(dtable)
+    bases = np.cumsum([0] + [g.shape[0] for g in groups[:-1]])
+    return [dtable[b:b + g.shape[0], :g.shape[1]]
+            for b, g in zip(bases, groups)]
+
+
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+@pytest.mark.parametrize("edges", [False, True])
+def test_fused_scatter_ref_matches_pallas_and_oracle(case, edges):
+    dims, spec, B = SCATTER_CASES[case]
+    rng = np.random.default_rng(len(spec) + 7 * B)
+    groups, rows, slots = _fused_case(rng, dims, spec, B)
+    if edges:
+        rows = _edge_rows(rows, slots)
+    dmax = max(dims)
+    gout = rng.standard_normal((B, len(spec), dmax)).astype(np.float32)
+    got = TREF.fused_scatter_ref(torch.from_numpy(gout),
+                                 torch.from_numpy(rows),
+                                 torch.from_numpy(slots),
+                                 [g.shape for g in groups])
+    assert [tuple(x.shape) for x in got] == [g.shape for g in groups]
+    _, absr, stream, _ = _absolute(groups, rows, slots, dmax)
+    vocab = sum(g.shape[0] for g in groups)
+    want = JREF.fused_scatter_ref(jnp.asarray(gout), absr, stream, vocab)
+    _scatter_close(got, _by_group(want, groups))
+    pallas = fused_scatter_kernel_call(jnp.asarray(gout), absr, stream,
+                                       vocab, interpret=True)
+    _scatter_close(got, _by_group(pallas, groups))
+    # rows no valid id names stay zero
+    for g, grad in zip(range(len(groups)), got):
+        named = set()
+        for gi, a, b, _ in slots:
+            if gi == g:
+                named |= set(rows[:, a:b][rows[:, a:b] >= 0].tolist())
+        untouched = sorted(set(range(grad.shape[0])) - named)
+        assert not grad[untouched].any()
+
+
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_fused_lookup_gradient_matches_jax_vjp(case):
+    """FusedLookup's backward (mean scaling, then the plain scatter)
+    against jax.vjp of the reference's custom_vjp, whose backward runs
+    the Pallas scatter in interpret mode, for a random cotangent."""
+    dims, spec, B = SCATTER_CASES[case]
+    rng = np.random.default_rng(100 + B)
+    groups, rows, slots = _fused_case(rng, dims, spec, B)
+    rows = _edge_rows(rows, slots)
+    dmax = max(dims)
+    ct = rng.standard_normal((B, len(spec), dmax)).astype(np.float32)
+    table, absr, stream, means = _absolute(groups, rows, slots, dmax)
+    want_out, vjp = jax.vjp(
+        lambda t: JOPS.fused_lookup(t, absr, stream, means), table)
+    (dtable,) = vjp(jnp.asarray(ct))
+    tg = [torch.from_numpy(g).requires_grad_(True) for g in groups]
+    r, s = torch.from_numpy(rows), torch.from_numpy(slots)
+    out = TOPS.FusedLookup.apply(r, s, TREF.column_slots(s, r.shape[1]),
+                                 dmax, *tg)
+    _close(out, want_out)
+    out.backward(torch.from_numpy(ct))
+    for got, want in zip(tg, _by_group(dtable, groups)):
+        _close(got.grad, want, atol=VJP_TOL, rtol=VJP_TOL)
+
+
+def test_fused_lookup_gradient_skips_row_spaces_without_grad():
+    rng = np.random.default_rng(9)
+    groups, rows, slots = _fused_case(rng, (8, 16), [(0, 3, 1), (1, 2, 0)], 4)
+    a = torch.from_numpy(groups[0]).requires_grad_(True)
+    b = torch.from_numpy(groups[1])
+    r, s = torch.from_numpy(rows), torch.from_numpy(slots)
+    out = TOPS.FusedLookup.apply(r, s, TREF.column_slots(s, r.shape[1]), 16,
+                                 a, b)
+    out.sum().backward()
+    assert a.grad is not None and a.grad.shape == a.shape
+    assert b.grad is None
+
+
+def test_a_plan_first_used_under_inference_mode_still_trains():
+    """The collection caches its slot table per device; made first under
+    inference_mode (scoring), it must still serve a training step."""
+    _, tc, params, feats = _setup("mixed", seed=3)
+    tf = _t(feats)
+    with torch.inference_mode():
+        tc.lookup(_t(params), tf)
+    tp = {k: v.requires_grad_(True) for k, v in _t(params).items()}
+    sum(v.sum() for v in tc.lookup(tp, tf).values()).backward()
+    assert all(v.grad is not None for v in tp.values())
+
+
+def test_plan_caches_the_column_slots():
+    """The fused plan's cached (S,) column -> slot table, which the card's
+    scatter reads, is the plain version's `column_slots` of its slot
+    table."""
+    _, tc, params, feats = _setup("mixed", seed=4)
+    plan, _, rows, slots = tc.fused_inputs(_t(params), _t(feats))
+    col_slot = plan.on(rows.device)[2]
+    assert col_slot.dtype == torch.int32
+    assert torch.equal(col_slot.long(),
+                       TREF.column_slots(slots, rows.shape[1]))
+    assert plan.on(rows.device)[2] is col_slot
