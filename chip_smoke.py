@@ -28,14 +28,20 @@ each of which fails the run if it fails:
   5. DLRM reference — reduced dlrm0 with the same weights and batch on the
      CPU (plain versions) and on the card (kernels): the logits of both
      lookup routes agree;
-  6. DLRM kernels — the fused lookup and the row gather against their
-     plain versions on the card: small edge cases (all ids -1, a mean
-     slot with count 0, repeated rows, valency 1 and 128, every dim),
-     then the one-card dlrm0 (its 150 tables at published widths and
-     valencies, vocabularies cut to 12e9 parameters = 48.0 GB f32,
-     initialised on the card from seed 0 once) at B = 256 (the repo's
-     per-chip batch: 65,536 over 256 chips) and B = 4096 (a scoring batch
-     for one card); each kernel is timed beside its plain version, its
+  6. DLRM kernels — the fused lookup, the row gather and the single-table
+     lookup against their plain versions on the card: small edge cases
+     (all ids -1, a mean slot with count 0, repeated rows, valency 1 and
+     128, every dim; the single-table lookup at the fig9 shape V=8192,
+     D=64, B=64, Vl=16), the int8 fused lookup at every dlrm0 width and
+     the scatter of deduplicated ids (unique sorted ids with a -1 tail, a
+     sorted stream with adjacent duplicates; bitwise), then the one-card
+     dlrm0 (its 150 tables at published widths and valencies,
+     vocabularies cut to 12e9 parameters = 48.0 GB f32, initialised on
+     the card from seed 0 once) at B = 256 (the repo's per-chip batch:
+     65,536 over 256 chips) and B = 4096 (a scoring batch for one card);
+     the single-table lookup runs through ``ops.embedding_lookup``, one
+     launch a table (counted), and is also held against the per-table
+     route's result; each kernel is timed beside its plain version, its
      byte bound (each distinct row of the batch read once) and
      ``F.embedding_bag`` / ``F.embedding`` (yardsticks only: the port
      never calls them);
@@ -45,10 +51,16 @@ each of which fails the run if it fails:
      before and read just after: 1 fused launch a batch, 150 gathers a
      batch.  Reports samples/s, ms a batch, peak allocated memory (which
      shows that no padded copy of the 48 GB of tables was made) and the
-     card's idle share over one batch.  The 48 GB of tables are freed after.
+     card's idle share over one batch.  Then the int8 fused lookup: the
+     48 GB of tables quantised with ``quantize_row_space`` (12.0 GB int8
+     + 0.76 GB of scales, peak < 66 GB checked), ``ops.fused_lookup_q``
+     at B = 256 and 4096 (counted) against its plain version and, within
+     the int8 rounding bound, the f32 fused lookup.  The tables are freed
+     after.
   8. DLRM training reference — reduced dlrm0 with the same weights and
      batch on the CPU (plain versions) and on the card (kernels): one
-     step's gradients agree, then Adam on the same gradients agrees;
+     step's gradients agree through both lookup routes, the per-table one
+     also with the fused one; then Adam on the same gradients agrees;
   9. fused-scatter kernel — the backward of the fused lookup against its
      plain version: small edge cases (a row named 10,000 times, invalid
      ids, every dim), then dlrm0 cut to 4e9 table parameters (16.0 GB f32)
@@ -60,7 +72,11 @@ each of which fails the run if it fails:
      whole call, the ordering alone, the kernel alone and the zero fill
      alone are timed beside the plain version (default and deterministic),
      the byte bound and ``index_add_`` (one call a row space; a yardstick
-     only);
+     only).  At B = 4096, before the gradient is freed: each table's ids
+     deduplicated (``dedup_ids``) and ``ops.embedding_scatter`` of its
+     gradient rows (150 launches, counted) bitwise the table's slice of
+     the gradient; timed whole, fill and kernel apart, beside the plain
+     version and ``index_copy_``;
  10. training — ``Trainer.train`` on that dlrm0 at B = 4096 with
      ``OptimizerConfig(lr=3e-4, warmup_steps=20)``, as a user runs it:
      3 warm and 10 timed steps, each drawing its batch from
@@ -74,6 +90,10 @@ each of which fails the run if it fails:
      v of the tables are 64 GB), one step split into forward + backward
      and Adam, and the card's busy time by kernel and idle share over one
      profiled step of the user's loop and one on a batch on the card.
+ 11. per-table training — ``Trainer.train`` with
+     ``ParallelConfig(emb_pipeline=False)`` on the same cut at B = 256, 2
+     steps: one gather a table and one fused scatter a row space a step
+     (counted), finite losses, params that move, peak < 72 GB.
 
 Prints, last: a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and
@@ -111,6 +131,10 @@ TRAIN_TABLE_PARAMS = 4_000_000_000   # one-card training cut: 4 x 16.0 GB
 TRAIN_BATCH = 4096
 TRAIN_WARM, TRAIN_TIMED = 3, 10
 TRAIN_PEAK_LIMIT = 72e9
+# int8 copy of the 48 GB scoring tables (12.0 GB + 0.76 GB of scales)
+# beside them, quantised 2^20 rows at a time
+INT8_PEAK_LIMIT = 66e9
+PER_TABLE_TRAIN_BATCH = DLRM_CHIP_BATCH
 # Adam, card vs CPU on the same gradients: the same f32 operations, norms
 # summed in other orders: 1e-6 of each element and of the leaf's largest
 ADAM_RTOL = 1e-6
@@ -155,6 +179,41 @@ def max_err(torch, got, want, what, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
           f"{what}: max |kernel - plain| {err.max().item():.3e} over "
           f"atol {atol} + rtol {rtol}")
     return err.max().item()
+
+
+def int8_half_sums(torch, scales, rows, slots, dmax):
+    """(B, K, dmax): per slot, half the sum of the tile scales of its valid
+    rows (divided by their count in a mean slot), lane by lane; what
+    round-to-nearest int8 can move a slot's value.  Gathers scales only."""
+    B = rows.shape[0]
+    out = torch.zeros((B, slots.shape[0], dmax), device=rows.device)
+    for k, (g, a, b, mean) in enumerate(slots.tolist()):
+        sc = scales[g]
+        ids = rows[:, a:b]
+        valid = ids >= 0
+        s = torch.where(valid[..., None], sc[ids.long().clamp_min(0)], 0.0)
+        s = s.sum(dim=1) / 2                                    # (B, nt)
+        if mean:
+            s = s / valid.sum(dim=1, keepdim=True).clamp_min(1)
+        lanes = s.repeat_interleave(128, dim=1)[:, :dmax]
+        out[:, k, :lanes.shape[1]] = lanes
+    return out
+
+
+def check_int8_bound(torch, REF, got, f32, scales, rows, slots, what):
+    """Fails unless the int8 lookup ``got`` is within the int8 rounding
+    bound of the f32 lookup ``f32`` (lanes past a group's dim are zero in
+    both), plus EMB_ATOL + EMB_RTOL |f32|; returns the largest share of
+    the bound used."""
+    torch.cuda.synchronize()
+    # in place: at full width each (B, K, dmax) temporary is 0.63 GB
+    lim = int8_half_sums(torch, scales, rows, slots, got.shape[2])
+    lim.add_(f32.abs().mul_(EMB_RTOL)).add_(EMB_ATOL)
+    err = got.sub(f32).abs_()
+    check(bool((err <= lim).all()),
+          f"{what}: int8 vs f32 lookup differ by {err.max().item():.3e}, "
+          f"past half a scale a row")
+    return err.div_(lim).max().item()
 
 
 def bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
@@ -448,8 +507,10 @@ def dlrm_reference_phase(torch, registry, api, ShapeConfig, FL, EG,
     return worst
 
 
-def emb_small_cases(torch, FL, EG, REF, dev="cuda"):
-    """Edge cases of both lookup kernels against their plain versions."""
+def emb_small_cases(torch, FL, EG, EL, ES, QU, REF, dev="cuda"):
+    """Edge cases of the embedding kernels against their plain versions:
+    the fused lookup (f32 and int8 at every dlrm0 width), the row gather,
+    the single-table lookup and the scatter of deduplicated ids."""
     gen = torch.Generator(device=dev).manual_seed(2)
     dims = (32, 64, 96, 128, 192, 256)
     groups = [torch.randn((r, d), generator=gen, device=dev)
@@ -493,7 +554,66 @@ def emb_small_cases(torch, FL, EG, REF, dev="cuda"):
                                    f"row gather V{V} D{D} B{Bg} Vl{Vl}",
                                    EMB_ATOL, EMB_RTOL))
         check(not got[0].any(), "row gather: ids -1 gave a non-zero row")
-    return err_f, err_g
+    # int8 fused lookup: the same descriptors over the quantised groups
+    qts = [QU.quantize_row_space(g) for g in groups]
+    qg, qs = [q.q for q in qts], [q.scale for q in qts]
+    got = FL.fused_lookup_q(qg, qs, rows, slot_t, 256)
+    err_q = max_err(torch, got, REF.fused_lookup_q_ref(qg, qs, rows, slot_t,
+                                                       256),
+                    "int8 fused lookup, small cases", EMB_ATOL, EMB_RTOL)
+    check(not got[3].any() and not got[0, 1].any() and not got[0, 3].any(),
+          "int8 fused lookup: a slot with no valid id is not zero")
+    check_int8_bound(torch, REF, got, FL.fused_lookup(groups, rows, slot_t,
+                                                      256),
+                     qs, rows, slot_t, "int8 fused lookup, small cases")
+    # single-table lookup at the fig9 shape (benchmarks/fig9_sparsecore.py),
+    # a sample with every id -1, a row repeated over the span
+    table = torch.randn((8192, 64), generator=gen, device=dev)
+    ids = torch.randint(-1, 8192, (64, 16), generator=gen, device=dev
+                        ).to(torch.int32)
+    ids[0] = -1
+    ids[1] = 77
+    err_l = 0.0
+    for comb in ("sum", "mean"):
+        got = EL.embedding_lookup(table, ids, comb)
+        err_l = max(err_l, max_err(torch, got,
+                                   REF.embedding_lookup_ref(table, ids, comb),
+                                   f"embedding lookup fig9 shape {comb}",
+                                   EMB_ATOL, EMB_RTOL))
+        check(not got[0].any(), "embedding lookup: all ids -1, not zero")
+    # scatter: unique sorted ids with a -1 tail, and a sorted stream with
+    # adjacent duplicates, a -1 tail and ids past V; bitwise the plain
+    # version in index order (deterministic algorithms)
+    V, D = 5000, 96
+    uniq = torch.cat([torch.randperm(V, generator=gen, device=dev)[:1500]
+                      .sort().values, torch.full((500,), -1, device=dev)])
+    dup = torch.cat([torch.randint(0, V, (3000,), generator=gen, device=dev)
+                     .sort().values, torch.tensor([V, V + 9], device=dev),
+                     torch.full((40,), -1, device=dev)])
+    for what, sid in (("unique ids", uniq), ("adjacent duplicates", dup)):
+        sid = sid.to(torch.int32)
+        grads = torch.randn((sid.numel(), D), generator=gen, device=dev)
+        got = ES.embedding_scatter(grads, sid, V)
+        with deterministic(torch):
+            want = REF.embedding_scatter_ref(grads, sid, V)
+        scatter_bitwise(torch, [got], [want], f"embedding scatter, {what}")
+        check(torch.equal(got.cpu(), REF.embedding_scatter_ref(
+            grads.cpu(), sid.cpu(), V)), f"embedding scatter, {what}: not "
+                                         f"bitwise the CPU's sequential sum")
+    return err_f, err_g, err_q, err_l
+
+
+def rows_by_group(torch, plan, groups, rows):
+    """(valid ids, distinct valid rows) of ``rows`` per row space: what a
+    lookup of this batch must read."""
+    col_group = torch.tensor([g for g, a, b, _ in plan.slot_table
+                              for _ in range(a, b)], device=rows.device)
+    out = []
+    for gi in range(len(groups)):
+        ids = rows[:, col_group == gi]
+        ids = ids[ids >= 0]
+        out.append((ids.numel(), int(torch.unique(ids).numel())))
+    return out
 
 
 def _bag_inputs(torch, plan, groups, rows):
@@ -523,8 +643,9 @@ def _bag_inputs(torch, plan, groups, rows):
 
 
 def dlrm_kernel_phase(torch, F, cfg, coll, tables, DL, ShapeConfig, FL, EG,
-                      REF, B, dev="cuda"):
-    """Both lookup kernels at the one-card dlrm0's tables and batch B: held
+                      EL, REF, ops, B, dev="cuda"):
+    """The lookup kernels at the one-card dlrm0's tables and batch B (the
+    fused lookup, the row gather and the single-table lookup): held
     against their plain versions, timed beside them, their byte bound and
     a PyTorch yardstick."""
     shape = ShapeConfig("dlrm_kernels", "prefill", 1, B)
@@ -552,18 +673,12 @@ def dlrm_kernel_phase(torch, F, cfg, coll, tables, DL, ShapeConfig, FL, EG,
         # bytes: each distinct row once (the Zipf ids repeat rows within a
         # batch), every id once, the (B, K, Dmax) output once; operations:
         # one add per lane of every valid id
-        col_group = torch.tensor([g for g, a, b, _ in plan.slot_table
-                                  for _ in range(a, b)], device=dev)
-        valid_rows = distinct_rows = valid_elems = distinct_elems = 0
-        for gi, table in enumerate(groups):
-            ids = rows[:, col_group == gi]
-            n_valid = int((ids >= 0).sum())
-            n_distinct = int(torch.unique(ids[ids >= 0]).numel())
-            valid_rows += n_valid
-            distinct_rows += n_distinct
-            valid_elems += n_valid * table.shape[1]
-            distinct_elems += n_distinct * table.shape[1]
-            del ids
+        counts = rows_by_group(torch, plan, groups, rows)
+        valid_rows = sum(v for v, _ in counts)
+        distinct_rows = sum(n for _, n in counts)
+        valid_elems = sum(v * g.shape[1] for (v, _), g in zip(counts, groups))
+        distinct_elems = sum(n * g.shape[1]
+                             for (_, n), g in zip(counts, groups))
         nbytes = (distinct_elems * 4 + rows.numel() * 4 + B * K * dmax * 4
                   + K * 16)
         bound_ms, bound_by = bound(nbytes, valid_elems, F32_FLOPS_PER_S)
@@ -596,8 +711,8 @@ def dlrm_kernel_phase(torch, F, cfg, coll, tables, DL, ShapeConfig, FL, EG,
                                    EMB_RTOL))
 
         def each(fn, i, sets=sets):
-            for x, y in sets[i]:
-                fn(x, y)
+            for args in sets[i]:
+                fn(*args)
 
         ms = cuda_ms(torch, lambda i: each(EG.embedding_gather, i), 2,
                      iters=10)
@@ -626,7 +741,148 @@ def dlrm_kernel_phase(torch, F, cfg, coll, tables, DL, ShapeConfig, FL, EG,
             bound_by=bound_by, library_ms=library_ms, batch=B,
             launches_timed=len(sets[0]), valid_rows=valid_rows,
             distinct_rows=sum(distinct), bytes=nbytes)
+        del clamped
+        # -- single-table lookup: one launch per table through ops (this
+        # slice's path), counted; held against its plain version and the
+        # per-table route (gather kernel + _combine) --------------------
+        lsets = [[(view, ids, t.combiner) for t, (view, ids) in
+                  zip(cfg.dlrm.tables, st)] for st in sets]
+        EL.launches = 0
+        path = [ops.embedding_lookup(*x) for x in lsets[0]]
+        torch.cuda.synchronize()
+        launches = EL.launches
+        check(launches == len(lsets[0]), f"embedding lookup at B={B}: "
+                                         f"{launches} launches for "
+                                         f"{len(lsets[0])} tables")
+        per_table = coll.lookup(tables, feats[0], fused=False)
+        err = err_route = 0.0
+        for t, got, x in zip(cfg.dlrm.tables, path, lsets[0]):
+            err = max(err, max_err(torch, got, REF.embedding_lookup_ref(*x),
+                                   f"embedding lookup at B={B}", EMB_ATOL,
+                                   EMB_RTOL))
+            err_route = max(err_route, max_err(
+                torch, got, per_table[t.name], f"embedding lookup vs the "
+                f"per-table route at B={B}", EMB_ATOL, EMB_RTOL))
+        del path, per_table
+        ms = cuda_ms(torch, lambda i: each(EL.embedding_lookup, i, lsets), 2,
+                     iters=10)
+        plain_ms = cuda_ms(torch, lambda i: each(REF.embedding_lookup_ref, i,
+                                                 lsets), 2, iters=5, warmup=1)
+        bags = []                   # F.embedding_bag(ids, table, weights)
+        for st in lsets:
+            per = []
+            for view, ids, comb in st:
+                w = (ids >= 0).float()
+                if comb == "mean":
+                    w /= w.sum(dim=1, keepdim=True).clamp_min(1.0)
+                per.append((ids.clamp_min(0).long(), view, w))
+            bags.append(per)
+        library_ms = cuda_ms(torch, lambda i: [
+            F.embedding_bag(ids, view, mode="sum", per_sample_weights=w)
+            for ids, view, w in bags[i]], 2, iters=10)
+        del bags
+        # bytes: each table's distinct rows once, every id once, the (B, D)
+        # output once; operations: one add per lane of every valid id
+        valid_elems = sum(int((ids >= 0).sum()) * view.shape[1]
+                          for view, ids in sets[0])
+        nbytes = (distinct_elems + sum(B * view.shape[1]
+                                       for view, _ in sets[0])) * 4 + sum(
+            ids.numel() * 4 for _, ids in sets[0])
+        bound_ms, bound_by = bound(nbytes, valid_elems, F32_FLOPS_PER_S)
+        out["embedding_lookup"] = dict(
+            name="embedding_lookup", route="cuda",
+            source="src/repro_torch/kernels/csrc/embedding_lookup.cu",
+            replaces="src/repro/kernels/embedding_lookup.py:109",
+            launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            batch=B, max_abs_err_vs_per_table_route=err_route,
+            launches_timed=len(lsets[0]), valid_rows=valid_rows,
+            distinct_rows=sum(distinct), bytes=nbytes)
     return out
+
+
+def int8_lookup_phase(torch, cfg, coll, tables, DL, ShapeConfig, FL, QU,
+                      REF, ops, dev="cuda"):
+    """The int8 fused lookup at full width: the resident scoring row
+    spaces quantised with ``quantize_row_space`` block by block (at most
+    one f32 block's tile extra), then ``ops.fused_lookup_q`` at B = 256
+    and 4096 on the scoring phase's descriptors (counted), held against
+    its plain version on the card and, within the int8 bound, the f32
+    fused lookup on the same batch; timed beside both."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qt = {k: QU.quantize_row_space(v)
+          for k, v in tables.items()}
+    torch.cuda.synchronize()
+    stats = {"quantize_s": time.perf_counter() - t0,
+             "int8_gb": sum(q.q.numel() for q in qt.values()) / 1e9,
+             "scales_gb": sum(q.scale.numel() * 4 for q in qt.values()) / 1e9,
+             "quantize_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    launches = 0
+    for B in (DLRM_CHIP_BATCH, DLRM_BATCH):
+        shape = ShapeConfig("dlrm_int8", "prefill", 1, B)
+        ins = []
+        for seed in (20, 21):
+            batch = DL.make_batch(cfg, shape, torch.Generator(
+                device=dev).manual_seed(seed))
+            plan, groups, rows, slots = coll.fused_inputs(
+                tables, {t.name: batch[f"cat_{t.name}"]
+                         for t in cfg.dlrm.tables})
+            ins.append(([qt[k].q for k in plan.keys],
+                        [qt[k].scale for k in plan.keys], groups, rows,
+                        slots))
+            del batch
+        dmax, K = plan.dmax, len(plan.fslots)
+        qg, qs, groups, rows, slots = ins[0]
+        with torch.inference_mode():
+            FL.launches_q = 0
+            got = ops.fused_lookup_q(qg, qs, rows, slots, dmax)
+            torch.cuda.synchronize()
+            n = FL.launches_q
+            check(n == 1, f"int8 fused lookup at B={B}: {n} launches for "
+                          f"one batch")
+            launches += n
+            err = max_err(torch, got, REF.fused_lookup_q_ref(
+                qg, qs, rows, slots, dmax), f"int8 fused lookup at B={B}",
+                EMB_ATOL, EMB_RTOL)
+            used = check_int8_bound(
+                torch, REF, got, FL.fused_lookup(groups, rows, slots, dmax),
+                qs, rows, slots, f"int8 fused lookup at B={B}")
+            del got
+            ms = cuda_ms(torch, lambda i: FL.fused_lookup_q(
+                *ins[i][:2], *ins[i][3:], dmax), 2, iters=20)
+            f32_ms = cuda_ms(torch, lambda i: FL.fused_lookup(
+                *ins[i][2:], dmax), 2, iters=20)
+            plain_ms = cuda_ms(torch, lambda i: REF.fused_lookup_q_ref(
+                *ins[i][:2], *ins[i][3:], dmax), 2, iters=5, warmup=1)
+        # bytes: each distinct row's int8 lanes and its scales once, every
+        # id once, the (B, K, dmax) output once; operations: a multiply
+        # and an add per lane of every valid id
+        counts = rows_by_group(torch, plan, qg, rows)
+        nbytes = sum(nd * (q.shape[1] + s.shape[1] * 4)
+                     for (_, nd), q, s in zip(counts, qg, qs)) \
+            + rows.numel() * 4 + B * K * dmax * 4 + K * 16
+        ops_n = 2 * sum(v * q.shape[1] for (v, _), q in zip(counts, qg))
+        bound_ms, bound_by = bound(nbytes, ops_n, F32_FLOPS_PER_S)
+        stats[B] = dict(
+            name="fused_lookup_q", route="cuda",
+            source="src/repro_torch/kernels/csrc/fused_lookup.cu",
+            replaces="src/repro/kernels/embedding_lookup.py:170",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, batch=B,
+            f32_fused_lookup_ms=f32_ms, int8_bound_share_used=used,
+            valid_rows=sum(v for v, _ in counts),
+            distinct_rows=sum(nd for _, nd in counts), bytes=nbytes)
+        del ins, qg, qs, groups, rows, slots
+    peak = torch.cuda.max_memory_allocated()
+    stats["peak_mem_gb"] = peak / 1e9
+    stats["launches"] = launches
+    check(peak < INT8_PEAK_LIMIT, f"int8 lookup: peak allocated "
+                                  f"{peak / 1e9:.2f} GB >= "
+                                  f"{INT8_PEAK_LIMIT / 1e9:.0f} GB")
+    del qt
+    return stats
 
 
 def dlrm_score_phase(torch, cfg, params, coll, api, ShapeConfig, FL, EG,
@@ -713,15 +969,16 @@ def dlrm0_cut(registry, table_params):
         base.dlrm, tables=dlrm0._table_specs(target_params=table_params)))
 
 
-def dlrm_phases(torch, F, registry, api, DL, ShapeConfig, FL, EG, REF,
-                dev="cuda"):
+def dlrm_phases(torch, F, registry, api, DL, ShapeConfig, FL, EG, EL, ES,
+                QU, REF, ops, dev="cuda"):
     worst = dlrm_reference_phase(torch, registry, api, ShapeConfig, FL, EG,
                                  dev)
     log(f"dlrm reference: card vs CPU logits differ by at most "
         f"{worst[1]:.3e} (tolerance {worst[2]:.3e} at that route)")
-    small = emb_small_cases(torch, FL, EG, REF, dev)
+    small = emb_small_cases(torch, FL, EG, EL, ES, QU, REF, dev)
     log(f"dlrm kernels, small cases: max |err| fused {small[0]:.3e}, "
-        f"gather {small[1]:.3e}")
+        f"gather {small[1]:.3e}, int8 fused {small[2]:.3e}, lookup "
+        f"{small[3]:.3e}; the scatter of deduplicated ids bitwise")
     cfg = dlrm0_cut(registry, DLRM_TABLE_PARAMS)
     n_emb = sum(t.vocab_size * t.dim for t in cfg.dlrm.tables)
     torch.cuda.reset_peak_memory_stats()
@@ -740,14 +997,20 @@ def dlrm_phases(torch, F, registry, api, DL, ShapeConfig, FL, EG, REF,
     kern = {}
     for B in (DLRM_CHIP_BATCH, DLRM_BATCH):
         kern[B] = dlrm_kernel_phase(torch, F, cfg, coll, params["tables"], DL,
-                                    ShapeConfig, FL, EG, REF, B, dev)
+                                    ShapeConfig, FL, EG, EL, REF, ops, B,
+                                    dev)
         log(f"dlrm kernels at B={B}:", json.dumps(kern[B]))
         torch.cuda.empty_cache()
     stats, launches = dlrm_score_phase(torch, cfg, params, coll, api,
                                        ShapeConfig, FL, EG, dev=dev)
     stats.update(info)
     log("dlrm scoring:", json.dumps(stats))
-    return kern, stats, launches
+    torch.cuda.empty_cache()
+    int8 = int8_lookup_phase(torch, cfg, coll, params["tables"], DL,
+                             ShapeConfig, FL, QU, REF, ops, dev)
+    log("int8 fused lookup:", json.dumps({str(k): v
+                                          for k, v in int8.items()}))
+    return kern, stats, launches, int8
 
 
 @contextlib.contextmanager
@@ -827,12 +1090,95 @@ def scatter_small_cases(torch, FS, REF, dev="cuda"):
     return worst
 
 
+def dedup_scatter_phase(torch, coll, plan, feats, grads, ES, DD, REF, ops):
+    """The scatter of deduplicated ids at full width: per table, its batch
+    ids deduplicated (``dedup_ids``), then ``ops.embedding_scatter(
+    grad_t[uniq.clamp_min(0)], uniq, V_t)`` (counted) must equal the
+    table's slice ``grad_t`` of the fused scatter's gradient bitwise (rows
+    the batch does not name are zero in both); the 150 calls timed whole,
+    fill and kernel apart, beside the plain version, the byte bound and
+    ``index_copy_``."""
+    dev = grads[0].device
+    gidx = {k: i for i, k in enumerate(plan.keys)}
+    items = []                    # (src (N, D), uniq (N,), V, grad_t, num)
+    for _, g in sorted(coll.local_groups.items()):
+        for s in g.slots:
+            grad_t = grads[gidx[g.name]][s.offset:s.offset + s.rows]
+            uniq, _, num = DD.dedup_ids(feats[s.spec.name].reshape(-1))
+            items.append((grad_t[uniq.clamp_min(0).long()], uniq, s.rows,
+                          grad_t, int(num)))
+    with torch.no_grad():
+        ES.launches = 0
+        outs = [ops.embedding_scatter(src, uniq, V)
+                for src, uniq, V, _, _ in items]
+        torch.cuda.synchronize()
+        launches = ES.launches
+        check(launches == len(items), f"embedding scatter: {launches} "
+                                      f"launches for {len(items)} tables")
+        err = 0.0
+        for out, (_, _, _, grad_t, _) in zip(outs, items):
+            check(torch.equal(out, grad_t), "embedding scatter: not bitwise "
+                                            "the table's fused-scatter "
+                                            "gradient")
+            err = max(err, (out - grad_t).abs().max().item())
+        del outs
+
+        def whole(i):
+            for src, uniq, V, _, _ in items:
+                ES.embedding_scatter(src, uniq, V)
+
+        def fill(i):
+            for src, _, V, _, _ in items:
+                torch.zeros((V, src.shape[1]), device=dev)
+
+        def plain(i):
+            for src, uniq, V, _, _ in items:
+                REF.embedding_scatter_ref(src, uniq, V)
+
+        ms = cuda_ms(torch, whole, 1, iters=5, warmup=1)
+        fill_ms = cuda_ms(torch, fill, 1, iters=5, warmup=1)
+        plain_ms = cuda_ms(torch, plain, 1, iters=3, warmup=1)
+        bufs = [torch.zeros((V, src.shape[1]), device=dev)
+                for src, _, V, _, _ in items]
+        kernel_ms = cuda_ms(torch, lambda i: [
+            ES.scatter_rows(b, src, uniq)
+            for b, (src, uniq, _, _, _) in zip(bufs, items)], 1, iters=10)
+        del bufs
+        copies = [(V, src[:n], uniq[:n].long())
+                  for src, uniq, V, _, n in items]
+
+        def library(i):           # zero fill + index_copy_ of the unique rows
+            for V, rows, idx in copies:
+                torch.zeros((V, rows.shape[1]), device=dev).index_copy_(
+                    0, idx, rows)
+
+        library_ms = cuda_ms(torch, library, 1, iters=5, warmup=1)
+        del copies
+    # bytes: the (V, D) output written once, every id read once, the
+    # gradient rows of the valid ids read once; operations: one add a lane
+    n_ids = sum(uniq.numel() for _, uniq, _, _, _ in items)
+    n_uniq = sum(n for *_, n in items)
+    nbytes = sum(V * src.shape[1] * 4 + uniq.numel() * 4
+                 + n * src.shape[1] * 4 for src, uniq, V, _, n in items)
+    adds = sum(n * src.shape[1] for src, _, _, _, n in items)
+    bound_ms, bound_by = bound(nbytes, adds, F32_FLOPS_PER_S)
+    del items
+    return dict(name="embedding_scatter", route="cuda",
+                source="src/repro_torch/kernels/csrc/embedding_scatter.cu",
+                replaces="src/repro/kernels/embedding_grad.py:35",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                kernel_ms=kernel_ms, fill_ms=fill_ms, ids=n_ids, unique_ids=n_uniq,
+                dedup_ratio=1.0 - n_uniq / max(n_ids, 1), bytes=nbytes)
+
+
 def scatter_kernel_phase(torch, cfg, coll, Dataset, ShapeConfig, FS, REF, B,
-                         dev="cuda"):
+                         dedup=None, dev="cuda"):
     """The fused scatter at the training tables' shapes and a batch of B
     from ``Dataset``: bitwise its plain version under deterministic
     algorithms and across two launches, timed whole and by part beside its
-    byte bound and ``index_add_``."""
+    byte bound and ``index_add_``.  ``dedup`` (ES, DD, ops) also runs the
+    scatter of deduplicated ids on its gradient (`dedup_scatter_phase`)."""
     shape = ShapeConfig("dlrm_train", "train", 1, B)
     t0 = time.perf_counter()
     batch = Dataset(cfg, shape, seed=0).batch(0)
@@ -844,7 +1190,6 @@ def scatter_kernel_phase(torch, cfg, coll, Dataset, ShapeConfig, FS, REF, B,
             for d, g in coll.local_groups.items()}
     plan, groups, rows, slots = coll.fused_inputs(meta, feats)
     col_slot = plan.on(rows.device)[2]
-    del feats
     shapes = [tuple(g.shape) for g in groups]
     K, dmax = len(plan.fslots), plan.dmax
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -863,7 +1208,12 @@ def scatter_kernel_phase(torch, cfg, coll, Dataset, ShapeConfig, FS, REF, B,
         with deterministic(torch):
             want = plain()
         err = scatter_bitwise(torch, got, want, what)
-        del got, want
+        del want
+        dd = None
+        if dedup is not None:
+            dd = dedup_scatter_phase(torch, coll, plan, feats, got, *dedup[:2],
+                                     REF, dedup[2])
+        del got, feats
         ms = cuda_ms(torch, lambda i: FS.fused_scatter(
             gout, rows, slots, col_slot, shapes), 1, iters=10)
         order_ms = cuda_ms(torch, lambda i: FS.order_descriptors(
@@ -931,15 +1281,16 @@ def scatter_kernel_phase(torch, cfg, coll, Dataset, ShapeConfig, FS, REF, B,
                 hot_run_ms=hot_run_ms, longest_run=longest,
                 valid_descriptors=n_valid, distinct_rows=n_distinct,
                 touched_bound_ms=touched_ms, bytes=nbytes,
-                gradient_gb=grad_bytes / 1e9, dataset_batch_s=data_s)
+                gradient_gb=grad_bytes / 1e9, dataset_batch_s=data_s), dd
 
 
 def dlrm_train_reference_phase(torch, registry, api, ShapeConfig,
                                ParallelConfig, OptimizerConfig, STEPS, OPT,
-                               FS, dev="cuda"):
+                               FS, EG, dev="cuda"):
     """Reduced dlrm0, same weights and batch: one step's gradients on the
-    CPU (plain versions) and on the card (kernels), then Adam on the same
-    gradients."""
+    CPU (plain versions) and on the card (kernels), through both lookup
+    routes, the per-table one also against the fused one; then Adam on the
+    same gradients."""
     cfg = registry.get_reduced("dlrm0")
     p_cpu = api.init_params(cfg, seed=0, device="cpu")
     b_cpu = api.make_batch(cfg, ShapeConfig("dlrm_check", "train", 1, 64),
@@ -961,6 +1312,29 @@ def dlrm_train_reference_phase(torch, registry, api, ShapeConfig,
         check(err <= tol, f"dlrm training reference: gradient leaf {i} "
                           f"differs by {err:.4g} > {tol:.4g}")
         worst = max(worst, (err / tol if tol else 0.0, err, tol))
+    # the per-table route (ops.GatherRows): one gather a table forward, one
+    # fused scatter a row space backward
+    per_table = ParallelConfig(remat="none", emb_pipeline=False)
+    g0, s0 = EG.launches, FS.launches
+    _, gp_cpu = STEPS.value_and_grad(cfg, per_table, p_cpu, b_cpu)
+    _, gp_gpu = STEPS.value_and_grad(cfg, per_table, p_gpu, b_gpu)
+    torch.cuda.synchronize()
+    check((EG.launches - g0, FS.launches - s0)
+          == (len(cfg.dlrm.tables), len(p_cpu["tables"])),
+          "dlrm training reference: the per-table route did not run one "
+          "gather a table and one fused scatter a row space")
+    for i, (a, b, f) in enumerate(zip(gp_gpu, gp_cpu, g_gpu)):
+        check(bool(torch.isfinite(a).all()), f"per-table gradient leaf {i} "
+                                             f"not finite")
+        tol = LOGIT_REL_TOL * b.abs().max().item()
+        err = (a.cpu() - b).abs().max().item()
+        err_f = (a - f).abs().max().item()
+        check(err <= tol and err_f <= tol,
+              f"dlrm training reference: per-table gradient leaf {i} differs "
+              f"from the CPU's by {err:.4g}, from the fused route's by "
+              f"{err_f:.4g} (tolerance {tol:.4g})")
+        worst = max(worst, (max(err, err_f) / tol if tol else 0.0,
+                            max(err, err_f), tol))
     ocfg = OptimizerConfig(lr=1e-2, warmup_steps=1)
     with torch.no_grad():
         p_same = _to(p_gpu, "cpu")
@@ -1095,6 +1469,61 @@ def train_phase(torch, cfg, ShapeConfig, RunConfig, ParallelConfig,
             "profile_step_on_card": prof_card}, launches
 
 
+def per_table_train_phase(torch, cfg, ShapeConfig, RunConfig,
+                          ParallelConfig, OptimizerConfig, Trainer, FL, EG,
+                          FS, dev="cuda", batch=PER_TABLE_TRAIN_BATCH,
+                          steps=2):
+    """``Trainer.train`` with ``ParallelConfig(emb_pipeline=False)`` on the
+    one-card training cut: the per-table route trains on the card.
+    Counters zeroed just before and read just after: one gather a table
+    and one fused scatter a row space a step, no fused lookup."""
+    run = RunConfig(model=cfg, shape=ShapeConfig("dlrm_train", "train", 1,
+                                                 batch),
+                    parallel=ParallelConfig(remat="none",
+                                            emb_pipeline=False),
+                    optimizer=OptimizerConfig(lr=3e-4, warmup_steps=20))
+    trainer = Trainer(run, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state()
+    first = sorted(state.params["tables"])[0]
+    before = [state.params["tables"][first][:4096].clone(),
+              state.params["top"][0]["w"][:64].clone()]
+    n_spaces = len(state.params["tables"])
+    marks = []
+
+    def on_step(step, _):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    FL.launches = EG.launches = FS.launches = 0
+    t0 = time.perf_counter()
+    state = trainer.train(steps, state=state, log_every=1, on_step=on_step)
+    launches = {"fused_lookup": FL.launches, "embedding_gather": EG.launches,
+                "fused_scatter": FS.launches}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in trainer.metrics_log]
+    want = {"fused_lookup": 0,
+            "embedding_gather": steps * len(cfg.dlrm.tables),
+            "fused_scatter": steps * n_spaces}
+    check(launches == want, f"per-table training: launches {launches}, "
+                            f"want {want}")
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"per-table training: losses {losses}")
+    after = [state.params["tables"][first][:4096],
+             state.params["top"][0]["w"][:64]]
+    check(all(bool(torch.isfinite(a).all()) and not torch.equal(a, b)
+              for a, b in zip(after, before)),
+          "per-table training: the params did not move (or are not finite)")
+    check(peak < TRAIN_PEAK_LIMIT, f"per-table training: peak allocated "
+                                   f"{peak / 1e9:.2f} GB >= "
+                                   f"{TRAIN_PEAK_LIMIT / 1e9:.0f} GB")
+    return {"batch": batch, "steps": steps, "losses": losses,
+            "ms_per_step": [(b - a) * 1e3
+                            for a, b in zip([t0] + marks[:-1], marks)],
+            "peak_mem_gb": peak / 1e9, "launches": launches}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1129,14 +1558,19 @@ def main(argv=None):
     from repro_torch.data.synthetic import Dataset
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as DA
+    from repro_torch.embeddings import dedup as DD
     from repro_torch.kernels import embedding_gather as EG
+    from repro_torch.kernels import embedding_lookup as EL
+    from repro_torch.kernels import embedding_scatter as ES
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_lookup as FL
     from repro_torch.kernels import fused_scatter as FS
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ref as REF
     from repro_torch.launch import steps as STEPS
     from repro_torch.models import api
     from repro_torch.models import dlrm as DL
+    from repro_torch.models import quant as QU
     from repro_torch.models import transformer as TF
     from repro_torch.optim import adam as OPT
     from repro_torch.serve import engine as engine_mod
@@ -1172,17 +1606,19 @@ def main(argv=None):
     gc.collect()                    # the serve phase's weights and caches
     torch.cuda.empty_cache()
 
-    dlrm_kern, dlrm_stats, dlrm_launches = dlrm_phases(
-        torch, F, registry, api, DL, ShapeConfig, FL, EG, REF)
+    dlrm_kern, dlrm_stats, dlrm_launches, int8 = dlrm_phases(
+        torch, F, registry, api, DL, ShapeConfig, FL, EG, EL, ES, QU, REF,
+        ops)
     gc.collect()                    # the scoring phase's 48 GB of tables
     torch.cuda.empty_cache()
 
     grad_worst, adam_err = dlrm_train_reference_phase(
         torch, registry, api, ShapeConfig, ParallelConfig, OptimizerConfig,
-        STEPS, OPT, FS)
-    log(f"dlrm training reference: card vs CPU gradients differ by at most "
-        f"{grad_worst[1]:.3e} (tolerance {grad_worst[2]:.3e} at that leaf); "
-        f"Adam on the same gradients by {adam_err:.3e}")
+        STEPS, OPT, FS, EG)
+    log(f"dlrm training reference: card vs CPU gradients (both routes) and "
+        f"per-table vs fused differ by at most {grad_worst[1]:.3e} "
+        f"(tolerance {grad_worst[2]:.3e} at that leaf); Adam on the same "
+        f"gradients by {adam_err:.3e}")
     log(f"fused scatter, small cases: max |kernel - plain| "
         f"{scatter_small_cases(torch, FS, REF):.3e}; bitwise the CPU's "
         f"sequential sum; two launches bitwise equal")
@@ -1190,11 +1626,13 @@ def main(argv=None):
     tcoll = DL.collection_for(tcfg)
     scatter = {}
     for B in (DLRM_CHIP_BATCH, TRAIN_BATCH):
-        scatter[B] = scatter_kernel_phase(torch, tcfg, tcoll, Dataset,
-                                          ShapeConfig, FS, REF, B)
+        scatter[B], dedup = scatter_kernel_phase(
+            torch, tcfg, tcoll, Dataset, ShapeConfig, FS, REF, B,
+            dedup=(ES, DD, ops) if B == TRAIN_BATCH else None)
         log(f"fused scatter at B={B}:", json.dumps(scatter[B]))
         gc.collect()
         torch.cuda.empty_cache()
+    log(f"scatter of deduplicated ids at B={TRAIN_BATCH}:", json.dumps(dedup))
     train_stats, train_launches = train_phase(
         torch, tcfg, ShapeConfig, RunConfig, ParallelConfig, OptimizerConfig,
         Trainer, STEPS, OPT, FL, FS)
@@ -1202,6 +1640,12 @@ def main(argv=None):
                                     for t in tcfg.dlrm.tables)
     train_stats["launches"] = train_launches
     log("dlrm training:", json.dumps(train_stats))
+    gc.collect()                    # the trainer's 64 GB of state
+    torch.cuda.empty_cache()
+    per_table = per_table_train_phase(
+        torch, tcfg, ShapeConfig, RunConfig, ParallelConfig, OptimizerConfig,
+        Trainer, FL, EG, FS)
+    log("dlrm training, per-table route:", json.dumps(per_table))
 
     decode["launches"] = launches["paged_decode_attention"]
     prefill["launches"] = launches["flash_attention"]
@@ -1211,11 +1655,17 @@ def main(argv=None):
     gather["launches"] = dlrm_launches["embedding_gather"]
     scat = scatter[TRAIN_BATCH]
     scat["launches"] = train_launches["fused_scatter"]
+    lookup = dict(dlrm_kern[DLRM_BATCH]["embedding_lookup"])
+    lookup["launches"] = sum(k["embedding_lookup"]["launches"]
+                             for k in dlrm_kern.values())
+    qlookup = dict(int8[DLRM_BATCH], launches=int8["launches"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = {"kernels": [{k: kern[k] for k in keys}
                            for kern in (decode, prefill, fused, gather,
-                                        scat)]}
+                                        scat, lookup, dedup, qlookup)]}
+    check(all(k["launches"] > 0 for k in kernels["kernels"]),
+          f"a kernel was not launched on its path: {kernels}")
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.out:
@@ -1228,6 +1678,9 @@ def main(argv=None):
                  train_reference={"grad_worst": grad_worst,
                                   "adam_err": adam_err},
                  fused_scatter={str(b): v for b, v in scatter.items()},
+                 dedup_scatter=dedup,
+                 int8_lookup={str(b): v for b, v in int8.items()},
+                 per_table_training=per_table,
                  **kernels), indent=2))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -27,7 +27,9 @@ no copy is made; ``fused_table`` stays only as a tool for the tests.
 
 Per-table lookup (``fused=False``; ``examples/train_dlrm.py --pergroup``)
 ----------------------------------------------------------------------
-One row gather per table (``_gather_rows``), then a masked sum or mean.
+One row gather per table, then a masked sum or mean.  The gathers of the
+tables that share a row space go through one ``ops.GatherRows``, so the
+backward scatters once per row space into one row-space-sized gradient.
 
 Kernels
 -------
@@ -37,14 +39,15 @@ kernels, CPU tensors to their plain versions (``kernels/ref.py``).  The
 fused route runs through ``ops.FusedLookup``, the reference's
 ``custom_vjp``: the fused-lookup kernel forward, the fused-scatter kernel
 backward, so gradients reach the ``local_d{D}`` row spaces where they
-lie.  The per-table gather kernel is forward only, as in the reference,
-and raises when a gradient is asked of it; its plain version on the CPU
-is differentiated by autograd.
+lie.  The per-table route runs through ``ops.GatherRows``: the row-gather
+kernel forward (one launch per table), the fused-scatter kernel backward
+(one launch per row space), both dispatched by device the same way.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): the distributed psum / all-to-all exchanges (queue 1, item 12) and
-the hot-id cache with its ``PipelinedEmbeddingExecutor`` and id dedup
-(queue 1, item 10).
+the hot-id cache with its ``PipelinedEmbeddingExecutor``, which
+deduplicates ids on its way (queue 1, item 10; ``embeddings/dedup.py``
+itself is ported).
 """
 from __future__ import annotations
 
@@ -332,10 +335,29 @@ class EmbeddingCollection:
 
     def _lookup_replicated_legacy(self, params, features
                                   ) -> Dict[str, torch.Tensor]:
-        """Pre-v2 dataflow: one gather+combine per locally-resident table."""
-        return {t.name: _combine(
-            _gather_rows(self.table_view(params, t), features[t.name]),
-            features[t.name], t.combiner) for t in self.replicated}
+        """Pre-v2 dataflow: one gather+combine per locally-resident table.
+        Where a gradient is recorded, the tables of one row space share
+        one ``ops.GatherRows`` (one gradient per row space, not one per
+        table).  Otherwise each table is gathered and combined in turn, in
+        ``replicated`` order (big tables first, widths interleaved): one
+        table's (B, Vl, D) rows are alive at a time (a row space's at once
+        is 13.4 GB for dlrm0's d256 tables at B = 4096), and the card's
+        heavy tables overlap the host's launches for light ones."""
+        units = self._units("replicated")
+        if not (torch.is_grad_enabled()
+                and any(params[key].requires_grad for _, key in units)):
+            return {t.name: _combine(
+                ops.embedding_gather(self.table_view(params, t),
+                                     features[t.name].to(torch.int32)),
+                features[t.name], t.combiner) for t in self.replicated}
+        out: Dict[str, torch.Tensor] = {}
+        for g, key in units:
+            ids = [features[s.spec.name].to(torch.int32) for s in g.slots]
+            spans = tuple((s.offset, s.rows) for s in g.slots)
+            rows = ops.GatherRows.apply(params[key], spans, *ids)
+            for s, r, i in zip(g.slots, rows, ids):
+                out[s.spec.name] = _combine(r, i, s.spec.combiner)
+        return out
 
     @staticmethod
     def _concat_group_ids(g: Group, features):
@@ -404,8 +426,11 @@ def _group_fused_lookup(arr, g: Group, features) -> Dict[str, torch.Tensor]:
 
 def _gather_rows(table, ids):
     """(V, D), (B, Vl) -> (B, Vl, D); invalid ids give zero rows.  The row
-    gather kernel on the card, its plain version on the CPU."""
-    return ops.embedding_gather(table, ids.to(torch.int32))
+    gather kernel on the card, its plain version on the CPU; differentiable
+    through ``ops.GatherRows``."""
+    rows, = ops.GatherRows.apply(table, ((0, table.shape[0]),),
+                                 ids.to(torch.int32))
+    return rows
 
 
 def _combine(rows, ids, combiner: str):

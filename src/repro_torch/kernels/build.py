@@ -43,6 +43,10 @@ SIGNATURES = {
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "repro_fused_lookup_f32":
         [_PP, _PI, _PI, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_fused_lookup_q8":
+        [_PP, _PP, _PI, _PI, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_embedding_lookup_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_embedding_scatter_f32": [_P, _P, _P, _L, _I, _I, _P],
     "repro_embedding_gather_f32": [_P, _P, _P, _L, _I, _I, _P],
     "repro_fused_scatter_keys": [_PI, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "repro_fused_scatter_f32":

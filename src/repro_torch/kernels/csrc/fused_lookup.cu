@@ -1,17 +1,22 @@
-// Fused multi-table embedding lookup (sum / mean per table) for sm_90a.
+// Fused multi-table embedding lookup (sum / mean per table) for sm_90a,
+// over f32 row spaces and over int8 row spaces with per-tile scales.
 //
 // Replaces repro/kernels/embedding_lookup.py::fused_lookup_kernel_call
-// (Pallas body _fused_lookup_kernel), the SparseCore Fetch-unit model: one
-// launch over every table.  Same function as
-// repro_torch/kernels/ref.py::fused_lookup_ref:
+// (Pallas bodies _fused_lookup_kernel and, with scales=, the int8
+// _fused_lookup_kernel_q), the SparseCore Fetch-unit model: one launch
+// over every table.  Same function as repro_torch/kernels/ref.py::
+// fused_lookup_ref (f32) and fused_lookup_q_ref (int8):
 //
-//   groups   G row spaces, group g is (rows_g, dim_g) f32, row-major
+//   groups   G row spaces, group g is (rows_g, dim_g), row-major, f32 or
+//            int8; an int8 group has scales (rows_g, ceil(dim_g / 128))
+//            f32, one per 128-lane tile from lane 0 (the last partial)
 //   rows     (B, S) int32 group-local row ids, -1 = no value
 //   slots    (K, 4) int32: per output slot k (one table) the group g, the
 //            descriptor-column span [a, b) of rows, and a mean flag
 //   -> out   (B, K, Dm) f32; out[b, k, :dim_g] is the sum (or the mean,
-//            count floored at 1) of the valid rows of columns [a, b), and
-//            lanes >= dim_g are zero
+//            count floored at 1) of the valid rows of columns [a, b), an
+//            int8 row dequantised (q * its tile's scale, f32) before it is
+//            added, and lanes >= dim_g are zero
 //
 // The Pallas kernel reads ONE (R, Dm) table: every width-group padded to
 // Dm lanes and concatenated, on every call.  For dlrm0 that copy would be
@@ -19,13 +24,17 @@
 // G row spaces where they lie: their base pointers, dims and row counts
 // travel by value in the kernel's parameters (__grid_constant__, no copy).
 //
-// Bound on the H100: bytes.  Each valid id reads one row of dim_g floats
-// once and adds it (one flop per 4 bytes), so the kernel's job is to keep
-// enough row loads in flight.  Design:
+// Bound on the H100: bytes.  Each valid id reads one row of dim_g elements
+// once (4 bytes each in f32, 1 in int8, plus one scale per tile) and adds
+// it (one flop per element), so the kernel's job is to keep enough row
+// loads in flight.  Design (one body, templated on the row type):
 //   * one warp per (sample b, slot k); it loads 32 row ids at once
 //     (coalesced), broadcasts them with shuffles, and issues the loads of
-//     UNROLL rows before it adds them; lane l owns float4 chunks l, l+32,
-//     ... of the row (16-byte loads, one row read by consecutive lanes);
+//     UNROLL rows before it adds them; lane l owns chunks l, l+32, ... of
+//     4 row elements (a 16-byte float4 in f32, a 4-byte char4 in int8: an
+//     int8 row of d32 is 32 bytes), so one row is read by consecutive
+//     lanes; chunk l + 32c lies in tile c, so an int8 lane dequantises
+//     its chunk c with scale c of the row;
 //   * the sum and the count stay in f32 registers and are added in column
 //     order, with no atomics: the result is the same run to run;
 //   * every offset is 64-bit: a dlrm0 row space holds more than 2^31
@@ -46,7 +55,8 @@ constexpr int NT = WARPS * 32;
 constexpr int UNROLL = 4;       // rows whose loads are in flight per warp
 
 struct GroupTable {
-  const float4* base[MAXG];
+  const void* base[MAXG];
+  const float* scale[MAXG];     // int8 groups: (rows, ceil(dim / 128)) f32
   int dim[MAXG];
   int rows[MAXG];
   int n;
@@ -59,7 +69,33 @@ __device__ __forceinline__ void add4(float4& acc, const float4& v) {
   acc.w += v.w;
 }
 
-template <int CPL>              // float4 chunks per lane: Dm <= 128 * CPL
+// Chunk ch (4 elements) of row r as f32; c = ch / 32 is its 128-lane tile.
+template <typename T>
+__device__ __forceinline__ float4 load_chunk(const void* base,
+                                             const float* scale, size_t r,
+                                             int nch, int nt, int ch, int c);
+
+template <>
+__device__ __forceinline__ float4 load_chunk<float>(const void* base,
+                                                    const float*, size_t r,
+                                                    int nch, int, int ch,
+                                                    int) {
+  return __ldg(static_cast<const float4*>(base) + r * nch + ch);
+}
+
+template <>
+__device__ __forceinline__ float4 load_chunk<int8_t>(const void* base,
+                                                     const float* scale,
+                                                     size_t r, int nch,
+                                                     int nt, int ch, int c) {
+  const char4 q = __ldg(static_cast<const char4*>(base) + r * nch + ch);
+  const float s = __ldg(scale + r * nt + c);
+  return make_float4((float)q.x * s, (float)q.y * s, (float)q.z * s,
+                     (float)q.w * s);
+}
+
+// CPL: chunks per lane (Dm <= 128 * CPL); T: the row type, float or int8_t
+template <int CPL, typename T>
 __global__ void __launch_bounds__(NT) fused_lookup_kernel(
     const __grid_constant__ GroupTable groups, const int* __restrict__ rows,
     const int4* __restrict__ slots, float* __restrict__ out, int B, int S,
@@ -72,8 +108,10 @@ __global__ void __launch_bounds__(NT) fused_lookup_kernel(
   const bool ok = sl.x >= 0 && sl.x < groups.n;
   const int g = ok ? sl.x : 0;
   const int nch = ok ? groups.dim[g] / 4 : 0;
+  const int nt = (nch + 31) / 32;          // 128-lane tiles of a row
   const int last = groups.rows[g] - 1;
-  const float4* __restrict__ base = groups.base[g];
+  const void* __restrict__ base = groups.base[g];
+  const float* __restrict__ scale = groups.scale[g];
   const int a = max(sl.y, 0);
   const int e = ok ? min(sl.z, S) : 0;
   const int* __restrict__ rrow = rows + (size_t)b * S;
@@ -95,7 +133,8 @@ __global__ void __launch_bounds__(NT) fused_lookup_kernel(
         for (int c = 0; c < CPL; ++c) {
           const int ch = lane + 32 * c;
           v[u][c] = (r[u] >= 0 && ch < nch)
-                        ? __ldg(base + (size_t)r[u] * nch + ch)
+                        ? load_chunk<T>(base, scale, (size_t)r[u], nch, nt,
+                                        ch, c)
                         : make_float4(0.f, 0.f, 0.f, 0.f);
         }
       }
@@ -123,12 +162,11 @@ __global__ void __launch_bounds__(NT) fused_lookup_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int repro_fused_lookup_f32(
-    const void* const* group_ptrs, const int* group_dims,
-    const int* group_rows, int n_groups, const void* rows, const void* slots,
-    void* out, int B, int S, int K, int Dm, void* stream) {
+template <typename T>
+int launch(const void* const* group_ptrs, const void* const* scale_ptrs,
+           const int* group_dims, const int* group_rows, int n_groups,
+           const void* rows, const void* slots, void* out, int B, int S,
+           int K, int Dm, void* stream) {
   if (n_groups <= 0 || n_groups > MAXG || B < 0 || S < 0 || K < 0 ||
       Dm <= 0 || Dm % 4 != 0 || Dm > 128 * 4)
     return (int)cudaErrorInvalidValue;
@@ -137,7 +175,11 @@ extern "C" int repro_fused_lookup_f32(
     if (group_dims[g] <= 0 || group_dims[g] % 4 != 0 ||
         group_dims[g] > Dm || group_rows[g] <= 0)
       return (int)cudaErrorInvalidValue;
-    gt.base[g] = static_cast<const float4*>(group_ptrs[g]);
+    gt.base[g] = group_ptrs[g];
+    gt.scale[g] =
+        scale_ptrs ? static_cast<const float*>(scale_ptrs[g]) : nullptr;
+    if (sizeof(T) == 1 && gt.scale[g] == nullptr)
+      return (int)cudaErrorInvalidValue;
     gt.dim[g] = group_dims[g];
     gt.rows[g] = group_rows[g];
   }
@@ -150,13 +192,34 @@ extern "C" int repro_fused_lookup_f32(
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Dm <= 128)
-    fused_lookup_kernel<1><<<(unsigned)blocks, NT, 0, st>>>(gt, r, sl, o, B,
-                                                            S, K, Dm);
+    fused_lookup_kernel<1, T><<<(unsigned)blocks, NT, 0, st>>>(gt, r, sl, o,
+                                                               B, S, K, Dm);
   else if (Dm <= 256)
-    fused_lookup_kernel<2><<<(unsigned)blocks, NT, 0, st>>>(gt, r, sl, o, B,
-                                                            S, K, Dm);
+    fused_lookup_kernel<2, T><<<(unsigned)blocks, NT, 0, st>>>(gt, r, sl, o,
+                                                               B, S, K, Dm);
   else
-    fused_lookup_kernel<4><<<(unsigned)blocks, NT, 0, st>>>(gt, r, sl, o, B,
-                                                            S, K, Dm);
+    fused_lookup_kernel<4, T><<<(unsigned)blocks, NT, 0, st>>>(gt, r, sl, o,
+                                                               B, S, K, Dm);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int repro_fused_lookup_f32(
+    const void* const* group_ptrs, const int* group_dims,
+    const int* group_rows, int n_groups, const void* rows, const void* slots,
+    void* out, int B, int S, int K, int Dm, void* stream) {
+  return launch<float>(group_ptrs, nullptr, group_dims, group_rows, n_groups,
+                       rows, slots, out, B, S, K, Dm, stream);
+}
+
+// int8 row spaces: scale_ptrs[g] is group g's (rows, ceil(dim / 128)) f32
+// scales.
+extern "C" int repro_fused_lookup_q8(
+    const void* const* group_ptrs, const void* const* scale_ptrs,
+    const int* group_dims, const int* group_rows, int n_groups,
+    const void* rows, const void* slots, void* out, int B, int S, int K,
+    int Dm, void* stream) {
+  return launch<int8_t>(group_ptrs, scale_ptrs, group_dims, group_rows,
+                        n_groups, rows, slots, out, B, S, K, Dm, stream);
 }

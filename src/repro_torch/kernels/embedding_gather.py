@@ -7,11 +7,14 @@ it once per table and batch.
 
 Bound on the H100: bytes (a copy: valid rows read once, the output written
 once).  One thread moves one 16-byte chunk of an output row, so reads of a
-table row and writes of the output are both coalesced.  Forward only, as
-the reference's (``gather_kernel_call`` has no VJP): a call that would
-need a gradient raises, and training goes through the fused route.  `embedding_gather` launches the kernel on CUDA tensors
-and raises on anything it does not take; ``ops`` sends CPU tensors to the
-plain version in ``ref``.  ``launches`` counts successful launches.
+table row and writes of the output are both coalesced.  The kernel has no
+backward of its own, as the reference's (``gather_kernel_call`` has no
+VJP): its gradient is ``ops.GatherRows``', whose backward launches the
+fused-scatter kernel once per row space.  A call of the raw wrapper that
+would need a gradient raises, so none goes missing without a word.
+`embedding_gather` launches the kernel on CUDA tensors and raises on
+anything it does not take; ``ops`` sends CPU tensors to the plain version
+in ``ref``.  ``launches`` counts successful launches.
 """
 from __future__ import annotations
 
@@ -24,15 +27,16 @@ from repro_torch.kernels import build
 launches = 0           # kernel launches in this process
 
 
-def no_gradient(name: str, tables: Sequence[torch.Tensor]) -> None:
-    """Raise if autograd would need a gradient of ``tables`` from this
-    forward-only kernel (the port never returns a silent zero gradient)."""
+def no_gradient(name: str, tables: Sequence[torch.Tensor],
+                through: str = "ops.GatherRows") -> None:
+    """Raise if autograd would need a gradient of ``tables`` from a kernel
+    wrapper that has no backward (the port never returns a silent zero
+    gradient); ``through`` names the differentiable entry point."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
         raise NotImplementedError(
-            f"{name}: the per-table gather kernel route is forward only, as "
-            f"in the reference (its gather kernel has no backward); train "
-            f"through the fused route (lookup(fused=True)), or run under "
-            f"torch.no_grad() / inference_mode(), or on the CPU")
+            f"{name}: the raw kernel wrapper has no backward; take the "
+            f"gradient through {through}, or call it under torch.no_grad() "
+            f"/ inference_mode()")
 
 
 def embedding_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,9 @@ no fallback from the card to the plain version.
 
 `FusedLookup` is the port's counterpart of the reference's
 ``ops.fused_lookup`` ``custom_vjp``: the fused lookup forward, the fused
-scatter backward, each dispatched the same way.
+scatter backward, each dispatched the same way.  `GatherRows` makes the
+per-table route differentiable: the row gather forward, the fused scatter
+backward, once per row space.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import embedding_gather as EG
+from repro_torch.kernels import embedding_lookup as EL
+from repro_torch.kernels import embedding_scatter as ES
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_lookup as FL
 from repro_torch.kernels import fused_scatter as FS
@@ -66,11 +70,38 @@ def fused_lookup(groups: Sequence, rows, slots, dmax: int):
     return REF.fused_lookup_ref(groups, rows, slots, dmax)
 
 
+def fused_lookup_q(qgroups: Sequence, scales: Sequence, rows, slots,
+                   dmax: int):
+    """qgroups: (R_g, D_g) int8 row spaces; scales: (R_g, ceil(D_g / 128))
+    f32 each; rows, slots as `fused_lookup` -> (B, K, dmax) f32, each
+    row dequantised before it is added (the int8 serving lookup)."""
+    if _device_type(*qgroups, *scales, rows, slots) == "cuda":
+        return FL.fused_lookup_q(qgroups, scales, rows, slots, dmax)
+    return REF.fused_lookup_q_ref(qgroups, scales, rows, slots, dmax)
+
+
 def embedding_gather(table, ids):
     """table (V, D); ids (B, Vl) -> (B, Vl, D), zero rows for ids < 0."""
     if _device_type(table, ids) == "cuda":
         return EG.embedding_gather(table, ids)
     return REF.embedding_gather_ref(table, ids)
+
+
+def embedding_lookup(table, ids, combiner: str = "sum"):
+    """table (V, D); ids (B, Vl), -1 = no value -> (B, D): each sample's
+    valid rows summed, or averaged for ``"mean"`` (count floored at 1)."""
+    if _device_type(table, ids) == "cuda":
+        return EL.embedding_lookup(table, ids, combiner)
+    return REF.embedding_lookup_ref(table, ids, combiner)
+
+
+def embedding_scatter(grads, ids, vocab: int):
+    """grads (N, D); ids (N,) with equal ids adjacent (``embeddings/
+    dedup.dedup_ids``' output, or any sorted stream), -1 = none
+    -> (vocab, D): zeros, each valid id's rows summed into its row."""
+    if _device_type(grads, ids) == "cuda":
+        return ES.embedding_scatter(grads, ids, vocab)
+    return REF.embedding_scatter_ref(grads, ids, vocab)
 
 
 def fused_scatter(gout, rows, slots, col_slot,
@@ -124,3 +155,46 @@ class FusedLookup(torch.autograd.Function):
         grads = fused_scatter(_mean_scaled(g, rows, slots), rows, slots,
                               col_slot, ctx.shapes)
         return (None, None, None, None, *grads)
+
+
+class GatherRows(torch.autograd.Function):
+    """Differentiable per-table row gathers from ONE row space:
+    ``GatherRows.apply(space, spans, *ids)`` -> one (B, Vl_t, D) tensor
+    per table t, where ``spans[t] = (offset, V_t)`` places the table's
+    rows in ``space`` (R, D) and ``ids[t]`` (B, Vl_t) int32 are its
+    table-local ids (-1 = no value; an id >= V_t reads the table's last
+    row).
+
+    Forward: one `embedding_gather` per table on its row slice (the gather
+    kernel on the card, its plain version on the CPU).  Backward: ONE
+    `fused_scatter` over the row space with one slot per descriptor
+    column: ``gout`` (B, S, D) the tables' output gradients side by side,
+    slots (S, 4) = (0, j, j + 1, 0), ``col_slot`` = arange(S), and the
+    ids offset into the row space.  So autograd allocates one
+    row-space-sized gradient however many tables share it, no new kernel
+    is needed, and the card sums each row in (b, s) order, the same bits
+    on every run.  Gradients flow to ``space`` only."""
+
+    @staticmethod
+    def forward(ctx, space, spans, *ids):
+        ctx.spans = tuple(spans)
+        ctx.shape = tuple(space.shape)
+        ctx.save_for_backward(*ids)
+        return tuple(embedding_gather(space[o:o + v], i)
+                     for (o, v), i in zip(ctx.spans, ids))
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        ids = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return (None, None, *[None] * len(ids))
+        rows = torch.cat([torch.where(i >= 0, i.clamp_max(v - 1) + o, -1)
+                          for (o, v), i in zip(ctx.spans, ids)],
+                         dim=1).to(torch.int32)
+        gout = torch.cat(gouts, dim=1).float().contiguous()    # (B, S, D)
+        j = torch.arange(rows.shape[1], dtype=torch.int32,
+                         device=rows.device)
+        zero = torch.zeros_like(j)
+        slots = torch.stack([zero, j, j + 1, zero], dim=1)
+        grad, = fused_scatter(gout, rows, slots, j, [ctx.shape])
+        return (grad, None, *[None] * len(ids))

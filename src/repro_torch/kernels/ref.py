@@ -1,11 +1,11 @@
 """Plain PyTorch versions of the port's kernels.
 
 Ports of ``repro/kernels/ref.py`` ``paged_decode_attention_ref``,
-``flash_attention_ref`` and ``embedding_gather_ref`` (same arguments, same
-masking contract, f32 math), and ``fused_lookup_ref`` and
-``fused_scatter_ref`` in the layout the port's fused-lookup and
-fused-scatter kernels take: the width-groups' row spaces where they lie,
-not one padded copy of them.  ``ops`` sends CPU tensors here; the
+``flash_attention_ref``, ``embedding_gather_ref``, ``embedding_lookup_ref``
+and ``embedding_scatter_ref`` (same arguments, same masking contract, f32
+math), and ``fused_lookup_ref``, ``fused_lookup_q_ref`` and
+``fused_scatter_ref`` in the layout the port's fused kernels take: the
+width-groups' row spaces where they lie, not one padded copy of them.  ``ops`` sends CPU tensors here; the
 CUDA kernels are held against these on the card (``chip_smoke.py``,
 ``tests/test_torch_cuda.py``) and these against JAX on the CPU
 (``tests/test_torch_kernels_ref.py``, ``tests/test_torch_embeddings.py``).
@@ -18,7 +18,16 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.fused_lookup import TILE
+
 NEG_INF = -1e30
+
+
+def dequant(q: torch.Tensor, scale: torch.Tensor, tile: int) -> torch.Tensor:
+    """int8 ``q`` (..., D) times its tile's scale (..., ceil(D / tile)) in
+    f32 (a partial last tile takes the last scale)."""
+    per_lane = scale.repeat_interleave(tile, dim=-1)[..., :q.shape[-1]]
+    return q.float() * per_lane
 
 
 def paged_decode_attention_ref(q, k, v, seq_lens, *,
@@ -85,6 +94,32 @@ def embedding_gather_ref(table, ids):
     return torch.where((ids >= 0)[..., None], rows, 0.0)
 
 
+def embedding_lookup_ref(table, ids, combiner: str = "sum"):
+    """table (V, D); ids (B, Vl) int, -1 = no value -> (B, D) f32: each
+    sample's valid rows summed, or for ``"mean"`` divided by their count
+    floored at 1; an id >= V reads row V - 1, as the kernel."""
+    if combiner not in ("sum", "mean"):
+        raise ValueError(f"unknown combiner {combiner!r}")
+    out = embedding_gather_ref(table, ids).float().sum(dim=1)
+    if combiner == "mean":
+        out = out / (ids >= 0).sum(dim=1, keepdim=True).clamp_min(1)
+    return out
+
+
+def embedding_scatter_ref(grads, ids, vocab: int):
+    """grads (N, D); ids (N,) int -> (V, D) f32 zeros with the row of every
+    id in [0, V) added into row id, in index order (``index_add_``:
+    sequential on the CPU; on the card in order only under
+    ``torch.use_deterministic_algorithms``).  An id < 0 adds nothing and
+    an id >= V is dropped.  For unique ids this is the reference's
+    ``embedding_scatter_ref`` (0 + each row, once)."""
+    out = torch.zeros((vocab, grads.shape[1]), dtype=torch.float32,
+                      device=grads.device)
+    take = (ids >= 0) & (ids < vocab)
+    out.index_add_(0, ids[take].long(), grads[take].float())
+    return out
+
+
 def fused_lookup_ref(groups: Sequence[torch.Tensor], rows, slots, dmax: int):
     """groups: G row spaces (R_g, D_g) f32; rows (B, S) int group-local row
     ids (-1 invalid); slots (K, 4) int: per output slot its group, the
@@ -105,6 +140,36 @@ def fused_lookup_ref(groups: Sequence[torch.Tensor], rows, slots, dmax: int):
         if mean:
             acc = acc / valid.sum(dim=1, keepdim=True).clamp_min(1)
         out.append(F.pad(acc, (0, dmax - table.shape[1])))
+    if not out:
+        return torch.zeros((B, 0, dmax), device=rows.device)
+    return torch.stack(out, dim=1)
+
+
+def fused_lookup_q_ref(qgroups: Sequence[torch.Tensor],
+                       scales: Sequence[torch.Tensor], rows, slots,
+                       dmax: int):
+    """`fused_lookup_ref` over int8 row spaces: qgroups G (R_g, D_g) int8,
+    scales G (R_g, ceil(D_g / TILE)) f32, TILE = 128 lanes (``models/quant.
+    quantize_row_space``); every gathered row is dequantised (``q *
+    scale`` of its tile, f32) before it is added -> (B, K, dmax) f32.
+    Gathers rows slot by slot: no dequantised copy of a table is made.
+
+    Equals ``repro.kernels.ops.fused_lookup_q`` over the quantised padded
+    fused table (``quantize(fused_table, TILE)``), whose padding lanes
+    are zero."""
+    B = rows.shape[0]
+    out = []
+    for g, a, b, mean in slots.tolist():
+        q, sc = qgroups[g], scales[g]
+        ids = rows[:, a:b]
+        valid = ids >= 0
+        safe = ids.long().clamp(0, q.shape[0] - 1)
+        vecs = torch.where(valid[..., None], dequant(q[safe], sc[safe], TILE),
+                           0.0)                               # (B, w, D_g)
+        acc = vecs.sum(dim=1)
+        if mean:
+            acc = acc / valid.sum(dim=1, keepdim=True).clamp_min(1)
+        out.append(F.pad(acc, (0, dmax - q.shape[1])))
     if not out:
         return torch.zeros((B, 0, dmax), device=rows.device)
     return torch.stack(out, dim=1)

@@ -20,12 +20,15 @@ from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
 from repro_torch.optim import adam as OPT
 
 
-def loss_fn(cfg: ModelConfig, params, batch
+def loss_fn(cfg: ModelConfig, params, batch,
+            pcfg: ParallelConfig = ParallelConfig()
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """-> (loss, metrics).  The DLRM's mean BCE; other families raise."""
+    """-> (loss, metrics).  The DLRM's mean BCE, through the lookup route
+    ``pcfg.emb_pipeline`` picks (the reference's ``ctx.emb_pipeline``:
+    fused by default, per table when off); other families raise."""
     if cfg.family == "dlrm":
         from repro_torch.models import dlrm as DL
-        loss, _ = DL.loss_fn(cfg, params, batch)
+        loss, _ = DL.loss_fn(cfg, params, batch, fused=pcfg.emb_pipeline)
         return loss, {"loss": loss}
     raise NotImplementedError(
         f"training the {cfg.family!r} family (its loss, chunked "
@@ -66,7 +69,7 @@ def value_and_grad(cfg: ModelConfig, pcfg: ParallelConfig, params, batch
     leaves = OPT.leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    loss, metrics = loss_fn(cfg, params, batch)
+    loss, metrics = loss_fn(cfg, params, batch, pcfg)
     grads = torch.autograd.grad(loss, leaves)
     return {k: v.detach() for k, v in metrics.items()}, list(grads)
 

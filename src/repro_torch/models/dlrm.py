@@ -9,10 +9,11 @@ computes in bf16, as the reference does, and returns f32 logits.
 
 Params keep the reference's layout (``tables`` -> row spaces, ``bottom``
 and ``top`` -> lists of ``{"w", "b"}``), so JAX weights come over through
-``repro_torch.interop``.  `loss_fn` is differentiable end to end: on the
-fused route the table gradients come from the fused-scatter kernel
-(``kernels/ops.FusedLookup``); ``launch/steps.make_train_step`` and
-``train/trainer.Trainer`` train on it.
+``repro_torch.interop``.  `loss_fn` is differentiable end to end: on both
+routes the table gradients come from the fused-scatter kernel
+(``kernels/ops.FusedLookup``, ``kernels/ops.GatherRows``);
+``launch/steps.make_train_step`` and ``train/trainer.Trainer`` train on
+the route that ``ParallelConfig.emb_pipeline`` picks.
 """
 from __future__ import annotations
 
@@ -109,8 +110,10 @@ def loss_fn(cfg: ModelConfig, p, batch, *,
             coll: Optional[EmbeddingCollection] = None,
             fused: bool = True):
     """Mean binary cross-entropy on the logits -> (loss, aux 0.0).
-    Differentiable with respect to every param; on the card only through
-    the fused route (the per-table gather kernel is forward only)."""
+    Differentiable with respect to every param through either lookup
+    route: ``ops.FusedLookup`` (``fused=True``) or ``ops.GatherRows``
+    (``fused=False``), each with the fused-scatter kernel as its backward
+    on the card."""
     logits, aux = forward(cfg, p, batch, coll=coll, fused=fused)
     labels = batch["labels"].float()
     loss = torch.mean(torch.clamp_min(logits, 0) - logits * labels

@@ -6,7 +6,9 @@
 ``log_every`` steps.  Params and optimizer state are updated in place.
 
 It runs on the card unless ``device="cpu"`` is given, and raises without
-one.  The DLRM family only: dense training is ROADMAP.md slice 4.  Not
+one.  The DLRM family only, through the lookup route that
+``run.parallel.emb_pipeline`` picks (fused by default, per table when
+off): dense training is ROADMAP.md slice 4.  Not
 ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): checkpoints (``ckpt_dir``, `save`, `restore`; queue 1, item 7),
 and the fault drill and cooperative preemption of the cluster layer

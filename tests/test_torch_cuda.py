@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version, the wrappers' input checks and launch counts, the engine's
 chunk invariance through the kernels, the DLRM forward through the
-embedding kernels, and DLRM training through the fused lookup and the
-fused scatter (its backward) against the CPU.
+embedding kernels, DLRM training through both lookup routes (the fused
+scatter is the backward of each) against the CPU, and the single-table
+lookup, the scatter of deduplicated ids and the int8 fused lookup.
 
 Every test needs an sm_90 card and skips elsewhere.  This file imports no
 JAX, so it runs where JAX is not installed:
@@ -23,7 +24,11 @@ CPU, and as it does on the card under ``torch.use_deterministic_algorithms``
 (a stable sort of the indices, then each row's duplicates in order): the
 kernel is bitwise equal to both; against the plain version on the card
 by default (atomic adds, in any order) it agrees to SCATTER_TOL = 1e-5 of
-each row space's largest |gradient|.  DLRM logits and gradients (bf16 tower,
+each row space's largest |gradient|.  The single-table lookup and the
+int8 fused lookup add in column order, as the fused lookup: EMB_ATOL,
+EMB_RTOL; the int8 lookup is also within half a scale a row of the f32
+one.  The scatter of deduplicated ids sums each run of equal ids in
+index order: bitwise the plain version.  DLRM logits and gradients (bf16 tower,
 cuBLAS vs the CPU's matmuls) agree to 2^-5 of the largest |value|; Adam
 on the same gradients to ADAM_RTOL = 1e-6 of each leaf's largest |x|.
 """
@@ -35,6 +40,8 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import embedding_gather as EG
+from repro_torch.kernels import embedding_lookup as EL
+from repro_torch.kernels import embedding_scatter as ES
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_lookup as FL
 from repro_torch.kernels import fused_scatter as FS
@@ -44,6 +51,7 @@ from repro_torch.models import api
 from repro_torch.configs.base import OptimizerConfig, ParallelConfig
 from repro_torch.launch import steps as STEPS
 from repro_torch.models import dlrm as DL
+from repro_torch.models import quant as QU
 from repro_torch.optim import adam as OPT
 from repro_torch.serve.engine import ServeEngine, SliceSpec
 
@@ -270,16 +278,18 @@ def test_ops_routes_cuda_tensors_to_the_embedding_kernels(card):
     assert (FL.launches, EG.launches) == (f0 + 1, g0 + 1)
 
 
-def test_embedding_kernels_raise_when_a_gradient_is_asked(card):
-    """The per-table gather kernel is forward only (as the reference's)
-    and raises when a gradient is asked; the fused route gives one, through
-    the fused-scatter kernel, equal to the CPU's."""
+def test_per_table_gradient_on_card_matches_cpu_and_fused(card):
+    """The per-table route trains on the card (``ops.GatherRows``: the
+    gather kernel forward, one fused-scatter launch per row space
+    backward); its gradient equals the CPU's and the fused route's.  The
+    raw gather wrapper still refuses a gradient asked of it outside the
+    Function, and ``FusedLookup``'s gradient equals the CPU's."""
     rng = np.random.default_rng(4)
     groups, rows, slots = _fused_inputs(rng, card, (8, 16),
                                         [(0, 3, 0), (1, 2, 1)], 4)
     leaf = groups[0].clone().requires_grad_(True)
     g0 = EG.launches
-    with pytest.raises(NotImplementedError, match="forward only"):
+    with pytest.raises(NotImplementedError, match="GatherRows"):
         EG.embedding_gather(leaf, rows)
     assert EG.launches == g0
     f0, s0 = FL.launches, FS.launches
@@ -294,17 +304,28 @@ def test_embedding_kernels_raise_when_a_gradient_is_asked(card):
                           *cpu).backward(ct.cpu())
     torch.testing.assert_close(leaf.grad.cpu(), cpu[0].grad, atol=EMB_ATOL,
                                rtol=EMB_RTOL)
-    # through the model: the per-table route raises, the fused one trains
+    # through the model: the per-table route's gradients against the CPU's
+    # and the fused route's, on the same weights and batch
     cfg = registry.get_reduced("dlrm0")
-    p = api.init_params(cfg, seed=0, device=card)
-    p["tables"] = {k: v.requires_grad_(True) for k, v in p["tables"].items()}
-    batch = api.make_batch(cfg, ShapeConfig("x", "train", 1, 8), device=card)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        api.forward(cfg, p, batch, fused=False)
-    loss, _ = DL.loss_fn(cfg, p, batch)
-    loss.backward()
-    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
-               for t in p["tables"].values())
+    p = api.init_params(cfg, seed=0, device="cpu")
+    batch = api.make_batch(cfg, ShapeConfig("x", "train", 1, 64), seed=1,
+                           device="cpu")
+    pg, bg = _to(p, card), _to(batch, card)
+    n_tables, n_spaces = len(cfg.dlrm.tables), len(p["tables"])
+    g0, s0 = EG.launches, FS.launches
+    _, g_card = STEPS.value_and_grad(
+        cfg, ParallelConfig(remat="none", emb_pipeline=False), pg, bg)
+    torch.cuda.synchronize()
+    assert (EG.launches - g0, FS.launches - s0) == (n_tables, n_spaces)
+    _, g_cpu = STEPS.value_and_grad(
+        cfg, ParallelConfig(remat="none", emb_pipeline=False), p, batch)
+    _, g_fused = STEPS.value_and_grad(cfg, ParallelConfig(remat="none"),
+                                      _to(p, card), bg)
+    for a, b, f in zip(g_card, g_cpu, g_fused):
+        assert bool(torch.isfinite(a).all())
+        tol = LOGIT_REL_TOL * b.abs().max().item()
+        assert (a.cpu() - b).abs().max().item() <= tol
+        assert (a - f).abs().max().item() <= tol
 
 
 def _scatter_inputs(rng, dev, dims, spec, B):
@@ -443,3 +464,159 @@ def test_dlrm_forward_on_card_matches_cpu(card):
         assert (got.cpu() - want).abs().max().item() <= tol
         lk, _ = DL.loss_fn(cfg, pg, bg, fused=fused)
         assert torch.isfinite(lk)
+
+
+# -- the single-table lookup, the scatter of deduplicated ids, int8 lookup --
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("V,D,B,Vl", [(8192, 64, 64, 16), (7, 32, 4, 1),
+                                      (1000, 256, 33, 128), (3, 96, 2, 40),
+                                      (50, 512, 9, 5), (20, 4, 300, 3)])
+def test_embedding_lookup_kernel_matches_plain(card, combiner, V, D, B, Vl):
+    rng = np.random.default_rng(V + Vl)
+    table = torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32)
+                             ).to(card)
+    ids = torch.from_numpy(rng.integers(-1, V, size=(B, Vl)).astype(np.int32)
+                           ).to(card)
+    ids[0] = -1                          # no valid id: zeros, sum or mean
+    ids[1, :] = V - 1                    # one row repeated over the span
+    e0 = EL.launches
+    got = EL.embedding_lookup(table, ids, combiner)
+    torch.cuda.synchronize()
+    assert EL.launches == e0 + 1
+    torch.testing.assert_close(got, REF.embedding_lookup_ref(table, ids,
+                                                             combiner),
+                               atol=EMB_ATOL, rtol=EMB_RTOL)
+    assert not got[0].any()
+    assert torch.equal(got, EL.embedding_lookup(table, ids, combiner))
+    view = table[1:]                     # a row slice of a row space
+    vid = ids.clamp_max(V - 2)
+    torch.testing.assert_close(EL.embedding_lookup(view, vid, combiner),
+                               REF.embedding_lookup_ref(view, vid, combiner),
+                               atol=EMB_ATOL, rtol=EMB_RTOL)
+
+
+def _sorted_ids(rng, V, N, dup):
+    """Unique sorted ids with a -1 tail, or (``dup``) a sorted stream with
+    runs of equal ids, a -1 tail and ids past V."""
+    if dup:
+        ids = np.sort(rng.integers(0, V, size=N - 8))
+        ids = np.concatenate([ids, [V, V + 5], np.full(6, -1)])
+    else:
+        live = np.sort(rng.permutation(V)[:N // 2])
+        ids = np.concatenate([live, np.full(N - live.size, -1)])
+    return ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("V,D,N", [(32, 8, 10), (128, 64, 40),
+                                   (5000, 256, 3000), (40, 512, 100),
+                                   (3, 4, 1000)])
+def test_embedding_scatter_kernel_is_bitwise_plain(card, dup, V, D, N):
+    """Unique ids: bitwise the plain version (0 + each row).  Adjacent
+    duplicates: bitwise the plain version under deterministic algorithms
+    (index order) and on the CPU; two launches give the same bits."""
+    if not dup and N // 2 > V:
+        N = 2 * V
+    rng = np.random.default_rng(V + N)
+    ids = torch.from_numpy(_sorted_ids(rng, V, N, dup)).to(card)
+    grads = torch.from_numpy(rng.standard_normal((ids.numel(), D)).astype(
+        np.float32)).to(card)
+    e0 = ES.launches
+    got = ES.embedding_scatter(grads, ids, V)
+    again = ES.embedding_scatter(grads, ids, V)
+    torch.cuda.synchronize()
+    assert ES.launches == e0 + 2 and torch.equal(got, again)
+    assert torch.equal(got.cpu(), REF.embedding_scatter_ref(grads.cpu(),
+                                                            ids.cpu(), V))
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = REF.embedding_scatter_ref(grads, ids, V)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert torch.equal(got, want)
+
+
+def _q_inputs(rng, dev, dims, spec, B):
+    groups, rows, slots = _fused_inputs(rng, dev, dims, spec, B)
+    qts = [QU.quantize_row_space(g) for g in groups]
+    return [q.q for q in qts], [q.scale for q in qts], rows, slots, groups
+
+
+@pytest.mark.parametrize("dims,spec,B", FUSED_CASES, ids=str)
+def test_fused_lookup_q_kernel_matches_plain(card, dims, spec, B):
+    rng = np.random.default_rng(B + 1)
+    qg, qs, rows, slots, groups = _q_inputs(rng, card, dims, spec, B)
+    dmax = max(dims)
+    q0 = FL.launches_q
+    got = FL.fused_lookup_q(qg, qs, rows, slots, dmax)
+    torch.cuda.synchronize()
+    assert FL.launches_q == q0 + 1
+    torch.testing.assert_close(got, REF.fused_lookup_q_ref(qg, qs, rows,
+                                                           slots, dmax),
+                               atol=EMB_ATOL, rtol=EMB_RTOL)
+    assert not got[0, :2].any() and not got[2].any()
+    for k, (g, *_) in enumerate(spec):
+        assert not got[:, k, dims[g]:].any()
+    # against kernel 4 on the f32 tables: round-to-nearest int8 moves each
+    # row by at most half its tile's scale (the bound: the same lookup of
+    # ones with half the scales), plus f32 rounding
+    f32 = FL.fused_lookup(groups, rows, slots, dmax)
+    half = REF.fused_lookup_q_ref([torch.ones_like(q) for q in qg],
+                                  [x / 2 for x in qs], rows, slots, dmax)
+    assert bool(((got - f32).abs()
+                 <= half + EMB_ATOL + EMB_RTOL * f32.abs()).all())
+
+
+def test_sparsecore_wrappers_reject_what_the_kernels_do_not_take(card):
+    rng = np.random.default_rng(9)
+    qg, qs, rows, slots, groups = _q_inputs(rng, card, (8, 16),
+                                            [(0, 3, 0), (1, 2, 1)], 4)
+    table, ids = groups[1], rows[:, :3].contiguous()
+    with pytest.raises(ValueError, match="float32"):
+        EL.embedding_lookup(table.double(), ids)
+    with pytest.raises(ValueError, match="int32"):
+        EL.embedding_lookup(table, ids.long())
+    with pytest.raises(ValueError, match="2 dims"):
+        EL.embedding_lookup(table, ids[0])
+    with pytest.raises(ValueError, match="combiner"):
+        EL.embedding_lookup(table, ids, "max")
+    with pytest.raises(ValueError, match="CUDA"):
+        EL.embedding_lookup(table.cpu(), ids)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        EL.embedding_lookup(table.clone().requires_grad_(True), ids)
+    uniq = torch.tensor([0, 2, 3, -1], dtype=torch.int32, device=card)
+    grads = torch.ones((4, 16), device=card)
+    with pytest.raises(ValueError, match="float32"):
+        ES.embedding_scatter(grads.double(), uniq, 8)
+    with pytest.raises(ValueError, match="int32"):
+        ES.embedding_scatter(grads, uniq.long(), 8)
+    with pytest.raises(ValueError, match="disagree on N"):
+        ES.embedding_scatter(grads[:3].contiguous(), uniq, 8)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ES.embedding_scatter(grads[:, :6].contiguous(), uniq, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ES.embedding_scatter(grads.cpu(), uniq.cpu(), 8)
+    with pytest.raises(ValueError, match="int8"):
+        FL.fused_lookup_q(groups, qs, rows, slots, 16)
+    with pytest.raises(ValueError, match="one per 128-lane tile"):
+        FL.fused_lookup_q(qg, [s[:, :0].contiguous() for s in qs], rows,
+                          slots, 16)
+    with pytest.raises(ValueError, match="scale tables"):
+        FL.fused_lookup_q(qg, qs[:1], rows, slots, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        FL.fused_lookup_q([q.cpu() for q in qg], qs, rows, slots, 16)
+
+
+def test_ops_routes_cuda_tensors_to_the_sparsecore_kernels(card):
+    rng = np.random.default_rng(10)
+    qg, qs, rows, slots, groups = _q_inputs(rng, card, (8, 16),
+                                            [(0, 3, 0), (1, 2, 1)], 4)
+    uniq = torch.tensor([0, 2, 3, -1], dtype=torch.int32, device=card)
+    e0, s0, q0 = EL.launches, ES.launches, FL.launches_q
+    ops.embedding_lookup(groups[0], rows, "mean")
+    ops.embedding_scatter(torch.ones((4, 8), device=card), uniq, 5)
+    ops.fused_lookup_q(qg, qs, rows, slots, 16)
+    assert (EL.launches, ES.launches, FL.launches_q) == (e0 + 1, s0 + 1,
+                                                         q0 + 1)

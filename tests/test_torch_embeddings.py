@@ -39,10 +39,13 @@ from repro_torch.configs.base import EmbeddingTableConfig as TTable
 from repro_torch.embeddings import engine as TENG
 from repro_torch.embeddings import sharding as TSH
 from repro_torch.kernels import embedding_gather as TEG
+from repro_torch.kernels import embedding_lookup as TEL
+from repro_torch.kernels import embedding_scatter as TES
 from repro_torch.kernels import fused_lookup as TFL
 from repro_torch.kernels import fused_scatter as TFS
 from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import ref as TREF
+from repro_torch.models import quant as TQ
 
 ATOL = RTOL = 2e-5
 SCATTER_RTOL = 1e-6
@@ -406,7 +409,29 @@ def test_ops_sends_cpu_tensors_to_plain_versions():
         TREF.fused_scatter_ref(gout, r, s, shapes)))
     with pytest.raises(ValueError, match="CUDA"):
         TFS.fused_scatter(gout, r, s, cs, shapes)
+    # the single-table lookup, the scatter of deduplicated ids and the
+    # int8 fused lookup
+    ids = torch.tensor([[0, -1, 2], [-1, -1, -1], [1, 1, 5]],
+                       dtype=torch.int32)
+    for comb in ("sum", "mean"):
+        assert torch.equal(TOPS.embedding_lookup(g[1], ids, comb),
+                           TREF.embedding_lookup_ref(g[1], ids, comb))
+        with pytest.raises(ValueError, match="CUDA"):
+            TEL.embedding_lookup(g[1], ids, comb)
+    uniq = torch.tensor([0, 3, 4, -1], dtype=torch.int32)
+    grads = torch.ones((4, 16))
+    assert torch.equal(TOPS.embedding_scatter(grads, uniq, 6),
+                       TREF.embedding_scatter_ref(grads, uniq, 6))
+    with pytest.raises(ValueError, match="CUDA"):
+        TES.embedding_scatter(grads, uniq, 6)
+    qts = [TQ.quantize_row_space(x) for x in g]
+    qg, qs = [q.q for q in qts], [q.scale for q in qts]
+    assert torch.equal(TOPS.fused_lookup_q(qg, qs, r, s, 16),
+                       TREF.fused_lookup_q_ref(qg, qs, r, s, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        TFL.fused_lookup_q(qg, qs, r, s, 16)
     assert TFL.launches == 0 and TEG.launches == 0 and TFS.launches == 0
+    assert TEL.launches == 0 and TES.launches == 0 and TFL.launches_q == 0
 
 
 # the fused scatter's cases: the lookup's, plus widths 4 and 8 (the
