@@ -15,7 +15,14 @@ each of which fails the run if it fails:
      version and ``F.scaled_dot_product_attention`` (a yardstick only: the
      port never calls it) with CUDA events over inputs rotated past the
      50 MB L2; compute each kernel's bound from the bytes and flops these
-     inputs need;
+     inputs need; then the pooled and int8 decode kernels at the serving
+     decode shape (`pooled_kernel_phase`: a pool of 1024 blocks of 16
+     rows, permuted tables with 4 shared blocks, ``quantize_kv`` of the
+     same K/V; the int8 rows through ``ops`` once, counted), each against
+     its plain version and the pooled ones bitwise the per-slot kernels on
+     the gathered view; timed beside their plain versions and byte
+     bounds, with SDPA on the gathered bf16 view (the gather apart) as a
+     yardstick;
   3. reference — reduced olmo-1b with the same weights on the CPU (plain
      attention) and on the card (kernels): prefill and decode logits agree;
   4. serve — full-width olmo-1b (16 layers, d_model 2048, vocab 50304; bf16
@@ -25,6 +32,13 @@ each of which fails the run if it fails:
      waves).  Launch counters are zeroed just before ``run()`` and read
      just after: both kernels must have run on the main path.  Its memory
      is freed before the DLRM phases.
+ 4b. pooled decode — full-width olmo-1b over a pooled cache (1024 blocks
+     of 16 rows, 8 slots of 64 blocks; prompts of 64-128 tokens from
+     ``api.prefill_slot`` copied in; slots 0 and 1 share 4 blocks; slot 7
+     unadmitted): 16 greedy steps of ``decode_step_paged(tables=)`` (the
+     pooled kernel, counted), the same loop on the view gathered once, and
+     ``api.decode_n(tables=)``: logits bitwise equal on the admitted
+     slots, equal tokens, equal pools, no other pool row touched;
   5. DLRM reference — reduced dlrm0 with the same weights and batch on the
      CPU (plain versions) and on the card (kernels): the logits of both
      lookup routes agree;
@@ -312,6 +326,313 @@ def prefill_phase(torch, F, FA, REF):
                 replaces="src/repro/kernels/flash_attention.py:86",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
+
+
+
+# pooled block-table decode: the serving decode shape over a pool of
+# POOL_BLOCKS blocks of POOL_BS rows, POOL_NB blocks a slot (1024 rows)
+POOL_BS, POOL_NB, POOL_BLOCKS = 16, 64, 1024
+POOL_STEPS = 16
+
+
+def pooled_kernel_phase(torch, np, F, DA, REF, QU, ops, dev="cuda"):
+    """Rows 3, 1q and 3q at the serving decode shape (B=8, H=KH=16, d=128,
+    the decode phase's lengths): row 3 on a bf16 pool of 1024 blocks of 16
+    rows with permuted tables (two slots share 4 blocks), rows 1q and 3q on
+    ``quantize_kv`` of the same K/V (1q on the gathered int8 view).  Rows
+    1q and 3q go once through ``ops`` (counted); each is held against its
+    plain version, rows 3 and 3q bitwise against rows 1 and 1q on the
+    gathered view, and timed beside its plain version and its byte bound.
+    SDPA on the bf16 gathered view, with the gather timed apart, is logged
+    as a yardstick: no single PyTorch call reads a block table or
+    dequantises int8 KV (library_ms null)."""
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+    B, H, KH, d = 8, 16, 16, 128
+    lens_l = [0, 1, 100, 257, 512, 700, 1000, 1024]
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+
+    def inputs(i):
+        q = torch.randn((B, H, d), generator=gen, device=dev).to(bf)
+        kv = [torch.randn((POOL_BLOCKS, POOL_BS, KH, d), generator=gen,
+                          device=dev).to(bf) for _ in range(2)]
+        # a permutation of the pool; slots 4 and 5 (512 and 700 rows)
+        # share their first 4 blocks
+        t = np.random.default_rng(i).permutation(POOL_BLOCKS)[:B * POOL_NB]
+        t = t.reshape(B, POOL_NB).astype(np.int32)
+        t[5, :4] = t[4, :4]
+        t = torch.from_numpy(t).to(dev)
+        (kq, ks), (vq, vs) = (QU.quantize_kv(x) for x in kv)
+        view_q = [REF.pool_rows(x, t) for x in (kq, ks, vq, vs)]
+        return dict(q=q, k=kv[0], v=kv[1], t=t, kq=kq, ks=ks, vq=vq, vs=vs,
+                    view_q=view_q)
+
+    # 6 sets (~0.35 GB each): their valid int8 rows alone are 6 x 15 MB,
+    # past the 50 MB L2
+    sets = [inputs(i) for i in range(6)]
+    a = sets[0]
+    # the counted run of rows 1q and 3q: through ops, as a caller
+    DA.launches_q = DA.launches_bt_q = 0
+    got_1q = ops.paged_decode_attention(
+        a["q"], a["view_q"][0], a["view_q"][2], lens,
+        k_scale=a["view_q"][1], v_scale=a["view_q"][3])
+    got_3q = ops.paged_decode_attention_bt(
+        a["q"], a["kq"], a["vq"], lens, a["t"], k_scale=a["ks"],
+        v_scale=a["vs"])
+    torch.cuda.synchronize()
+    launches = {"paged_decode_attention_q8": DA.launches_q,
+                "paged_decode_attention_bt_q8": DA.launches_bt_q}
+    check(launches == {"paged_decode_attention_q8": 1,
+                       "paged_decode_attention_bt_q8": 1},
+          f"int8 decode through ops: launches {launches}")
+
+    got_3 = DA.paged_decode_attention_bt(a["q"], a["k"], a["v"], lens,
+                                         a["t"])
+    err = {
+        "bt": max_err(torch, got_3, REF.paged_decode_attention_bt_ref(
+            a["q"], a["k"], a["v"], lens, a["t"]), "pooled decode"),
+        "q8": max_err(torch, got_1q, REF.paged_decode_attention_ref(
+            a["q"], a["view_q"][0], a["view_q"][2], lens,
+            k_scale=a["view_q"][1], v_scale=a["view_q"][3]),
+            "int8 decode"),
+        "bt_q8": max_err(torch, got_3q, REF.paged_decode_attention_bt_ref(
+            a["q"], a["kq"], a["vq"], lens, a["t"], k_scale=a["ks"],
+            v_scale=a["vs"]), "pooled int8 decode")}
+    check(torch.equal(got_3, DA.paged_decode_attention(
+        a["q"], REF.pool_rows(a["k"], a["t"]), REF.pool_rows(a["v"], a["t"]),
+        lens)),
+        "pooled decode is not bitwise the per-slot kernel on the view")
+    check(torch.equal(got_3q, DA.paged_decode_attention_q8(
+        a["q"], *a["view_q"][:2], *a["view_q"][2:], lens)),
+        "pooled int8 decode is not bitwise the per-slot int8 kernel on the "
+        "view")
+
+    def bt(i):
+        x = sets[i]
+        return DA.paged_decode_attention_bt(x["q"], x["k"], x["v"], lens,
+                                            x["t"])
+
+    def bt_plain(i):
+        x = sets[i]
+        return REF.paged_decode_attention_bt_ref(x["q"], x["k"], x["v"],
+                                                 lens, x["t"])
+
+    def q8(i):
+        x = sets[i]
+        return DA.paged_decode_attention_q8(x["q"], *x["view_q"], lens)
+
+    def q8_plain(i):
+        x = sets[i]
+        kq, ks, vq, vs = x["view_q"]
+        return REF.paged_decode_attention_ref(x["q"], kq, vq, lens,
+                                              k_scale=ks, v_scale=vs)
+
+    def bt_q8(i):
+        x = sets[i]
+        return DA.paged_decode_attention_bt_q8(
+            x["q"], x["kq"], x["ks"], x["vq"], x["vs"], lens, x["t"])
+
+    def bt_q8_plain(i):
+        x = sets[i]
+        return REF.paged_decode_attention_bt_ref(
+            x["q"], x["kq"], x["vq"], lens, x["t"], k_scale=x["ks"],
+            v_scale=x["vs"])
+
+    # in turns (3, 1q, 3q, 3q, 1q, 3): ms is the mean of the two
+    kern = {"bt": bt, "q8": q8, "bt_q8": bt_q8}
+    turns = {n: [] for n in kern}
+    for n in ("bt", "q8", "bt_q8", "bt_q8", "q8", "bt"):
+        turns[n].append(cuda_ms(torch, kern[n], 6))
+    ms = {n: sum(v) / len(v) for n, v in turns.items()}
+    plain_ms = {n: cuda_ms(torch, f, 6) for n, f in
+                (("bt", bt_plain), ("q8", q8_plain), ("bt_q8", bt_q8_plain))}
+    # yardstick: the gather of the bf16 view, then SDPA on it
+    views = [(REF.pool_rows(x["k"], x["t"]), REF.pool_rows(x["v"], x["t"]))
+             for x in sets]
+    kpos = torch.arange(POOL_NB * POOL_BS, device=dev)
+    mask = (kpos[None, :] < lens[:, None].long())[:, None, None, :]
+    gather_ms = cuda_ms(torch, lambda i: (
+        REF.pool_rows(sets[i]["k"], sets[i]["t"]),
+        REF.pool_rows(sets[i]["v"], sets[i]["t"])), 6)
+    sdpa_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+        sets[i]["q"][:, :, None], views[i][0].transpose(1, 2),
+        views[i][1].transpose(1, 2), attn_mask=mask), 6)
+    del views
+
+    rows = sum(lens_l)
+    io = 2 * B * H * d * 2 + B * 4          # q in, out, seq_lens
+    tables = B * POOL_NB * 4
+    flops = 4 * rows * H * d                # q.k and p.v
+    deq = 2 * rows * KH * d                 # int8: one multiply an element
+    nbytes = {"bt": io + 2 * rows * KH * d * 2 + tables,
+              "q8": io + 2 * rows * KH * (d + 4),
+              "bt_q8": io + 2 * rows * KH * (d + 4) + tables}
+    meta = {
+        "bt": ("paged_decode_attention_bt",
+               "src/repro/kernels/decode_attention.py:217", flops),
+        "q8": ("paged_decode_attention_q8",
+               "src/repro/kernels/decode_attention.py:100", flops + deq),
+        "bt_q8": ("paged_decode_attention_bt_q8",
+                  "src/repro/kernels/decode_attention.py:210", flops + deq)}
+    out = {}
+    for n, (name, replaces, ops_n) in meta.items():
+        bound_ms, bound_by = bound(nbytes[n], ops_n)
+        out[n] = dict(name=name, route="cuda",
+                      source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                      replaces=replaces, max_abs_err=err[n], ms=ms[n],
+                      plain_ms=plain_ms[n], bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=None, bytes=nbytes[n],
+                      ms_turns=turns[n], launches=launches.get(name))
+    out["yardstick"] = {"gather_bf16_view_ms": gather_ms,
+                        "sdpa_on_gathered_view_ms": sdpa_ms}
+    return out
+
+
+def fill_pool(pool, dense, lens, tables):
+    """Copy rows [0, lens[b]) of slot b of the per-slot cache ``dense``
+    into the pool blocks ``tables[b]`` names, in place; a block an earlier
+    slot filled (a shared prefix block) keeps that slot's rows."""
+    filled = set()
+    bs = pool.k.shape[2]
+    for b, n in enumerate(lens):
+        for j in range(-(-int(n) // bs)):
+            blk = int(tables[b][j])
+            if blk in filled:
+                continue
+            rows = min(bs, int(n) - j * bs)
+            for dst, src in ((pool.k, dense.k), (pool.v, dense.v)):
+                dst[:, blk, :rows] = src[:, b, j * bs:j * bs + rows]
+            filled.add(blk)
+    return filled
+
+
+def pooled_decode_phase(torch, np, cfg, api, TF, DA, dev="cuda"):
+    """Full-width olmo-1b over a pooled cache of 1024 blocks of 16 rows, 8
+    slots of 64 blocks: prompts of 64-128 tokens prefilled by
+    ``api.prefill_slot`` and copied into the pool (`fill_pool`), slots 0
+    and 1 sharing their first 4 blocks, slot 7 unadmitted (table row the
+    sentinel 1024, seq_len 0, budget 0).  16 greedy steps three ways:
+    (A) ``decode_step_paged(tables=)`` (row 3, counted), (B) the same loop
+    on the view gathered once (row 1), (C) ``api.decode_n(tables=)``.
+    A's and B's logits are bitwise equal on the admitted slots, the tokens
+    of all three are equal, A's pool is bitwise C's, and every pool row
+    but the decoded ones is unchanged."""
+    params = api.init_params(cfg, seed=0, device=dev)
+    B, V = 8, cfg.vocab_size
+    rng = np.random.default_rng(3)
+    plens = [int(n) for n in rng.integers(64, 129, size=B - 1)] + [0]
+    prompts = [rng.integers(0, V, size=n) for n in plens[:-1]]
+    prompts[1][:4 * POOL_BS] = prompts[0][:4 * POOL_BS]
+    dense = api.init_cache(cfg, B, 128, device=dev)
+    feed = torch.zeros(B, dtype=torch.int32, device=dev)
+    for b, p in enumerate(prompts):
+        logits, dense = api.prefill_slot(
+            cfg, params, {"tokens": torch.as_tensor(p, device=dev)[None]},
+            dense, b, max_len=128)
+        feed[b] = torch.argmax(logits[0])
+    t = np.random.default_rng(4).permutation(POOL_BLOCKS)[:B * POOL_NB]
+    t = t.reshape(B, POOL_NB).astype(np.int32)
+    t[1, :4] = t[0, :4]
+    t[7] = POOL_BLOCKS
+    tables = torch.from_numpy(t).to(dev)
+    start = api.init_kv_pool(cfg, POOL_BLOCKS, POOL_BS, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for x in (start.k, start.v):            # unused rows hold garbage
+        x.normal_(generator=g)
+    fill_pool(start, dense, plens, t)
+    del dense
+    lens0 = torch.tensor(plens, dtype=torch.int32, device=dev)
+    budget = torch.tensor([POOL_STEPS] * (B - 1) + [0], dtype=torch.int32,
+                          device=dev)
+
+    def copy(c):
+        return TF.Cache(k=c.k.clone(), v=c.v.clone(), pos=c.pos.clone())
+
+    def loop(cache, tables_):
+        """16 greedy steps of decode_step_paged; (tokens, logits, cache,
+        ms a step by the host clock between two synchronisations)."""
+        tk, ln = feed, lens0
+        produced = torch.zeros_like(budget)
+        toks, logits = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(POOL_STEPS):
+            active = produced < budget
+            lg, cache, ln = TF.decode_step_paged(cfg, params, cache, tk, ln,
+                                                 active, tables=tables_)
+            tk = torch.where(active, torch.argmax(lg, -1).to(torch.int32),
+                             tk)
+            produced += active.to(torch.int32)
+            toks.append(tk)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / POOL_STEPS
+        return torch.stack(toks), torch.stack(logits), cache, step_ms
+
+    def chunk(cache):
+        """api.decode_n(tables=) over the 16 steps; (tokens, pool, ms a
+        step of the chunk, its gather and write-back included)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, cache, _, _ = api.decode_n(cfg, params, cache, feed, lens0,
+                                         budget, num_steps=POOL_STEPS,
+                                         tables=tables)
+        torch.cuda.synchronize()
+        return toks, cache, (time.perf_counter() - t0) * 1e3 / POOL_STEPS
+
+    torch.cuda.reset_peak_memory_stats()
+    pool_a = copy(start)
+    DA.launches = DA.launches_bt = 0
+    a_toks, a_logits, pool_a, a_ms = loop(pool_a, tables)
+    launches = {"paged_decode_attention_bt": DA.launches_bt,
+                "paged_decode_attention": DA.launches}
+    check(launches["paged_decode_attention_bt"]
+          >= cfg.num_layers * POOL_STEPS and not launches[
+              "paged_decode_attention"],
+          f"pooled decode launches {launches} for {POOL_STEPS} steps x "
+          f"{cfg.num_layers} layers")
+    check(tuple(a_logits.shape) == (POOL_STEPS, B, V)
+          and bool(torch.isfinite(a_logits[:, :7]).all()),
+          f"pooled logits {tuple(a_logits.shape)} not finite")
+    b_toks, b_logits, _, b_ms = loop(TF.pool_view(copy(start), tables), None)
+    check(torch.equal(a_logits[:, :7], b_logits[:, :7]),
+          "pooled (row 3) and gathered-view (row 1) logits differ on the "
+          "admitted slots")
+    del b_logits
+    c_toks, pool_c, c_ms = chunk(copy(start))
+    check(torch.equal(a_toks, b_toks) and torch.equal(a_toks, c_toks),
+          "pooled step loop, gathered-view loop and decode_n(tables=) "
+          "tokens differ")
+    check(torch.equal(pool_a.k, pool_c.k) and torch.equal(pool_a.v, pool_c.v),
+          "the pooled step loop and decode_n(tables=) wrote other pools")
+    written = torch.zeros((POOL_BLOCKS, POOL_BS), dtype=torch.bool,
+                          device=dev)
+    for b in range(B - 1):
+        for r in range(plens[b], plens[b] + POOL_STEPS):
+            written[int(t[b, r // POOL_BS]), r % POOL_BS] = True
+    check(not bool(written[int(t[0, 0])].any()), "a decode row in the "
+                                                 "shared block")
+    for x, y in ((pool_a.k, start.k), (pool_a.v, start.v)):
+        check(torch.equal(x[:, ~written], y[:, ~written]),
+              "pooled decode changed a pool row it did not decode")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del pool_a, pool_c, a_logits
+    # the host sets a step's pace and varies: time the three again in
+    # turns (A, B, C, C, B, A), each on a fresh copy of the pool
+    turns = {"A": [a_ms], "B": [b_ms], "C": [c_ms]}
+    for w in "ABCCBA":
+        if w == "A":
+            turns[w].append(loop(copy(start), tables)[3])
+        elif w == "B":
+            turns[w].append(loop(TF.pool_view(copy(start), tables), None)[3])
+        else:
+            turns[w].append(chunk(copy(start))[2])
+    stats = {"step_ms_pooled": turns["A"], "step_ms_gathered_view": turns["B"],
+             "step_ms_decode_n_chunk": turns["C"], "steps": POOL_STEPS,
+             "prompt_lens": plens, "peak_mem_gb": peak,
+             "rows_written": int(written.sum()), "launches": launches}
+    return stats, launches
 
 
 def _to(tree, device):
@@ -1595,6 +1916,12 @@ def main(argv=None):
 
     decode = decode_phase(torch, F, DA, REF)
     log("decode kernel:", json.dumps(decode))
+    pooled = pooled_kernel_phase(torch, np, F, DA, REF, QU, ops)
+    for n in ("bt", "q8", "bt_q8"):
+        log(f"{pooled[n]['name']} kernel:", json.dumps(pooled[n]))
+    log("pooled decode yardstick:", json.dumps(pooled["yardstick"]))
+    gc.collect()
+    torch.cuda.empty_cache()
     prefill = prefill_phase(torch, F, FA, REF)
     log("prefill kernel:", json.dumps(prefill))
     worst = reference_phase(torch, registry, api, TF)
@@ -1604,6 +1931,11 @@ def main(argv=None):
                                   api, engine_mod, DA, FA)
     log("serve:", json.dumps(stats))
     gc.collect()                    # the serve phase's weights and caches
+    torch.cuda.empty_cache()
+    pool_stats, pool_launches = pooled_decode_phase(
+        torch, np, registry.get_config("olmo-1b"), api, TF, DA)
+    log("pooled decode:", json.dumps(pool_stats))
+    gc.collect()                    # its weights and pools
     torch.cuda.empty_cache()
 
     dlrm_kern, dlrm_stats, dlrm_launches, int8 = dlrm_phases(
@@ -1648,6 +1980,7 @@ def main(argv=None):
     log("dlrm training, per-table route:", json.dumps(per_table))
 
     decode["launches"] = launches["paged_decode_attention"]
+    pooled["bt"]["launches"] = pool_launches["paged_decode_attention_bt"]
     prefill["launches"] = launches["flash_attention"]
     fused, gather = (dlrm_kern[DLRM_BATCH][n]
                      for n in ("fused_lookup", "embedding_gather"))
@@ -1662,8 +1995,10 @@ def main(argv=None):
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = {"kernels": [{k: kern[k] for k in keys}
-                           for kern in (decode, prefill, fused, gather,
-                                        scat, lookup, dedup, qlookup)]}
+                           for kern in (decode, pooled["q8"], pooled["bt"],
+                                        pooled["bt_q8"], prefill, fused,
+                                        gather, scat, lookup, dedup,
+                                        qlookup)]}
     check(all(k["launches"] > 0 for k in kernels["kernels"]),
           f"a kernel was not launched on its path: {kernels}")
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1672,6 +2007,7 @@ def main(argv=None):
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(card=card, serve=stats, reference_worst=worst,
+                 pooled_kernels=pooled, pooled_decode=pool_stats,
                  build_s=build.build_seconds, dlrm_scoring=dlrm_stats,
                  dlrm_kernels={str(b): v for b, v in dlrm_kern.items()},
                  dlrm_training=train_stats,

@@ -39,6 +39,13 @@ _PI = ctypes.POINTER(ctypes.c_int)      # a host array of ints
 SIGNATURES = {
     "repro_decode_attention_bf16":
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "repro_decode_attention_q8":
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "repro_decode_attention_bt_bf16":
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "repro_decode_attention_bt_q8":
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+         _F, _P],
     "repro_flash_attention_bf16":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "repro_fused_lookup_f32":

@@ -38,16 +38,56 @@ def _device_type(*ts) -> str:
     return kind
 
 
-def paged_decode_attention(q, k, v, seq_lens, *,
+def _widen(x, x_scale, q):
+    """int8 K or V rows dequantised to ``q``'s dtype (the reference's
+    ``quant.dequantize_kv(x, scale, dtype=q.dtype)``)."""
+    return REF.dequant_rows(x, x_scale).to(q.dtype)
+
+
+def paged_decode_attention(q, k, v, seq_lens, *, k_scale=None, v_scale=None,
                            window: Optional[int] = None,
                            softcap: Optional[float] = None,
                            scale: Optional[float] = None):
-    """q (B, H, d); k, v (B, S, KH, d); seq_lens (B,) -> (B, H, d)."""
+    """q (B, H, d); k, v (B, S, KH, d); seq_lens (B,) -> (B, H, d).
+
+    int8 K/V: ``k_scale``, ``v_scale`` (B, S, KH) f32
+    (``quant.quantize_kv``).  The card's kernel widens each element to
+    ``x * scale`` in f32, as the Pallas body does.  On the CPU, as the
+    reference's ``ops`` on a host backend, K/V are first dequantised to
+    ``q.dtype`` (`_widen`, ``quant.dequantize_kv``; for a bf16 ``q`` that
+    rounds them to bf16) and go to the plain version."""
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    if k_scale is not None:
+        if _device_type(q, k, v, seq_lens, k_scale, v_scale) == "cuda":
+            return DA.paged_decode_attention_q8(q, k, k_scale, v, v_scale,
+                                                seq_lens, **kw)
+        return REF.paged_decode_attention_ref(
+            q, _widen(k, k_scale, q), _widen(v, v_scale, q), seq_lens, **kw)
     if _device_type(q, k, v, seq_lens) == "cuda":
-        return DA.paged_decode_attention(q, k, v, seq_lens, window=window,
-                                         softcap=softcap, scale=scale)
-    return REF.paged_decode_attention_ref(q, k, v, seq_lens, window=window,
-                                          softcap=softcap, scale=scale)
+        return DA.paged_decode_attention(q, k, v, seq_lens, **kw)
+    return REF.paged_decode_attention_ref(q, k, v, seq_lens, **kw)
+
+
+def paged_decode_attention_bt(q, k, v, seq_lens, tables, *, k_scale=None,
+                              v_scale=None, window: Optional[int] = None,
+                              softcap: Optional[float] = None,
+                              scale: Optional[float] = None):
+    """q (B, H, d); k, v (NB, bs, KH, d) block pool; seq_lens (B,) valid
+    logical rows; tables (B, nb) logical -> pool block -> (B, H, d).
+    int8 pools take (NB, bs, KH) f32 ``k_scale``/``v_scale``, dispatched
+    as in `paged_decode_attention`."""
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    if k_scale is not None:
+        if _device_type(q, k, v, seq_lens, tables, k_scale,
+                        v_scale) == "cuda":
+            return DA.paged_decode_attention_bt_q8(
+                q, k, k_scale, v, v_scale, seq_lens, tables, **kw)
+        return REF.paged_decode_attention_bt_ref(
+            q, _widen(k, k_scale, q), _widen(v, v_scale, q), seq_lens,
+            tables, **kw)
+    if _device_type(q, k, v, seq_lens, tables) == "cuda":
+        return DA.paged_decode_attention_bt(q, k, v, seq_lens, tables, **kw)
+    return REF.paged_decode_attention_bt_ref(q, k, v, seq_lens, tables, **kw)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -1,14 +1,22 @@
 """Plain PyTorch versions of the port's kernels.
 
 Ports of ``repro/kernels/ref.py`` ``paged_decode_attention_ref``,
-``flash_attention_ref``, ``embedding_gather_ref``, ``embedding_lookup_ref``
-and ``embedding_scatter_ref`` (same arguments, same masking contract, f32
-math), and ``fused_lookup_ref``, ``fused_lookup_q_ref`` and
-``fused_scatter_ref`` in the layout the port's fused kernels take: the
-width-groups' row spaces where they lie, not one padded copy of them.  ``ops`` sends CPU tensors here; the
+``paged_decode_attention_bt_ref``, ``flash_attention_ref``,
+``embedding_gather_ref``, ``embedding_lookup_ref`` and
+``embedding_scatter_ref`` (same arguments, same masking contract, f32
+math; ``pool_rows`` is the block-table gather of the pooled one, which
+``models/transformer.pool_view`` shares); the two decode versions also
+take int8 K/V with ``k_scale``/``v_scale`` (one f32 scale a row and KV
+head, ``models/quant.quantize_kv``) and dequantise in f32, as the Pallas
+int8 bodies do: the plain versions of ``_decode_kernel_q`` and
+``_decode_kernel_bt_q``.  ``fused_lookup_ref``,
+``fused_lookup_q_ref`` and ``fused_scatter_ref`` are in the layout the
+port's fused kernels take: the width-groups' row spaces where they lie,
+not one padded copy of them.  ``ops`` sends CPU tensors here; the
 CUDA kernels are held against these on the card (``chip_smoke.py``,
 ``tests/test_torch_cuda.py``) and these against JAX on the CPU
-(``tests/test_torch_kernels_ref.py``, ``tests/test_torch_embeddings.py``).
+(``tests/test_torch_kernels_ref.py``, ``tests/test_torch_embeddings.py``,
+``tests/test_torch_pooled.py``).
 They are differentiable by autograd.
 """
 from __future__ import annotations
@@ -30,18 +38,28 @@ def dequant(q: torch.Tensor, scale: torch.Tensor, tile: int) -> torch.Tensor:
     return q.float() * per_lane
 
 
+def dequant_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 rows ``q`` (..., D) times one scale a row (...), in f32."""
+    return q.float() * scale[..., None]
+
+
 def paged_decode_attention_ref(q, k, v, seq_lens, *,
+                               k_scale=None, v_scale=None,
                                window: Optional[int] = None,
                                softcap: Optional[float] = None,
                                scale: Optional[float] = None):
     """q (B, H, d); k, v (B, S, KH, d); seq_lens (B,) int valid rows per slot
     (query attends kv_pos < seq_lens[b]; query position is seq_lens[b]-1)
-    -> (B, H, d).  Slots with seq_len == 0 return zeros, as the kernel."""
+    -> (B, H, d).  Slots with seq_len == 0 return zeros, as the kernel.
+    int8 K/V: ``k_scale``, ``v_scale`` (B, S, KH) f32; each row becomes
+    ``x * scale`` in f32 before the f32 math."""
     B, H, d = q.shape
     S, KH = k.shape[1], k.shape[2]
     G = H // KH
     if scale is None:
         scale = d ** -0.5
+    if k_scale is not None:
+        k, v = dequant_rows(k, k_scale), dequant_rows(v, v_scale)
     qr = q.reshape(B, KH, G, d).float() * scale
     s = torch.einsum("bkgd,bskd->bkgs", qr, k.float())
     if softcap is not None:
@@ -58,6 +76,37 @@ def paged_decode_attention_ref(q, k, v, seq_lens, *,
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bkgs,bskd->bkgd", p / l, v.float())
     return o.reshape(B, H, d).to(q.dtype)
+
+
+def pool_rows(x: torch.Tensor, tables, dim: int = 0) -> torch.Tensor:
+    """Each slot's logical view of the block pool ``x``, whose blocks and
+    their rows are dims ``dim`` and ``dim + 1`` (NB, bs): blocks
+    ``tables[b]`` (B, nb), clamped to [0, NB - 1], laid end to end, so
+    those two dims become (B, nb * bs)."""
+    NB, bs = x.shape[dim:dim + 2]
+    B, nb = tables.shape
+    t = tables.long().clamp(0, NB - 1).reshape(-1)
+    return x.index_select(dim, t).reshape(*x.shape[:dim], B, nb * bs,
+                                          *x.shape[dim + 2:])
+
+
+def paged_decode_attention_bt_ref(q, k, v, seq_lens, tables, *,
+                                  k_scale=None, v_scale=None,
+                                  window: Optional[int] = None,
+                                  softcap: Optional[float] = None,
+                                  scale: Optional[float] = None):
+    """q (B, H, d); k, v (NB, bs, KH, d) block pool; seq_lens (B,) int
+    valid LOGICAL rows per slot; tables (B, nb) int logical -> pool block,
+    clamped to [0, NB - 1] (an out-of-range entry's lanes lie past seq_len)
+    -> (B, H, d).  Gathers each slot's logical view (B, nb * bs, KH, d) and
+    its scales (int8: ``k_scale``, ``v_scale`` (NB, bs, KH) f32) and calls
+    `paged_decode_attention_ref`."""
+    def view(x):
+        return None if x is None else pool_rows(x, tables)
+
+    return paged_decode_attention_ref(
+        q, view(k), view(v), seq_lens, k_scale=view(k_scale),
+        v_scale=view(v_scale), window=window, softcap=softcap, scale=scale)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,

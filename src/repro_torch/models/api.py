@@ -115,7 +115,20 @@ def cache_insert(cache, slot_cache, slot):
 def decode_n(cfg: ModelConfig, p, cache, tokens, seq_lens, budget, *,
              num_steps: int, **kw):
     """Multi-step decode with per-slot lengths/budgets; see
-    transformer.decode_n."""
+    transformer.decode_n.  Pass ``tables=(B, nb)`` to decode over a pooled
+    prefix-shared KV cache (`init_kv_pool`) instead of per-slot rows."""
     _family(cfg)
     return TF.decode_n(cfg, p, cache, tokens, seq_lens, budget,
                        num_steps=num_steps, **kw)
+
+
+# -- pooled prefix-shared KV (block tables) ----------------------------------
+
+
+def init_kv_pool(cfg: ModelConfig, num_blocks: int, block_size: int, *,
+                 device="cuda"):
+    """Pooled bf16 KV cache (L, NB, bs, KH, hd) on ``device``; dense
+    attention families only; see transformer.init_kv_pool."""
+    _family(cfg)
+    return TF.init_kv_pool(cfg, num_blocks, block_size,
+                           device=resolve_device(device))

@@ -1,5 +1,6 @@
 """Mixed-precision choke point of the port (``repro/models/quant.py``
-``QTensor``, ``quantize``, ``cast`` and ``take``).
+``QTensor``, ``quantize``, ``cast``, ``take``, ``quantize_kv`` and
+``dequantize_kv``).
 
 The JAX package keeps f32 params and casts each weight to bf16 where it is
 used (`cast`, `take`).  `QTensor` / `quantize` are its symmetric int8
@@ -8,6 +9,9 @@ storage, one f32 scale per tile of the last axis, bitwise the reference's.
 (``kernels/fused_lookup.fused_lookup_q``): tiles of 128 lanes from lane 0,
 the last one partial, so an unpadded (R, D) row space gets the scales the
 reference gives its lanes inside the padded (R, 256) fused table.
+`quantize_kv` is the int8 KV cache's layout, one scale a row (the row the
+decode kernels stream), bitwise the reference's; the int8 decode kernels
+(``kernels/decode_attention``) widen each element on read.
 
 Not ported yet: ``quantize_params`` and the serving engine's
 ``quant="int8"`` path (ROADMAP.md, queue 1, item 4).
@@ -18,7 +22,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels.ref import dequant
+from repro_torch.kernels.ref import dequant, dequant_rows
 
 DEFAULT_TILE = 128
 BLOCK_ROWS = 1 << 20    # rows `quantize_row_space` quantises at a time
@@ -93,6 +97,22 @@ def quantize_row_space(w: torch.Tensor, tile: int = DEFAULT_TILE) -> QTensor:
             q[r0:r1, a:b] = part.div(s[:, None]).round_().clamp_(
                 -127, 127)
     return QTensor(q, scale, tile)
+
+
+def quantize_kv(kv: torch.Tensor):
+    """Per-row KV quantisation: ``kv (..., D) -> (int8 (..., D), f32 (...))``,
+    scale ``max(max |row|, 1e-12) / 127``, rounded half to even (as
+    ``jnp.round``) and clipped to +-127."""
+    x = kv.float()
+    scale = _tile_scale(x)
+    q = torch.round(x / scale[..., None]).clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.float32) -> torch.Tensor:
+    """``q * scale`` row by row in f32, then cast to ``dtype``."""
+    return dequant_rows(q, scale).to(dtype)
 
 
 def cast(w: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Dense decoder stack of the port: init, prefill, paged decode, decode_n.
+"""Dense decoder stack of the port: init, prefill, paged decode, decode_n,
+over a per-slot KV cache or a pooled block-table one (`init_kv_pool`).
 
 Ports of ``repro/models/transformer.py`` for the dense family.  JAX scans a
 stacked layer body; here a Python loop walks the same stacked params
@@ -31,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as OPS
+from repro_torch.kernels import ref as REF
 from repro_torch.models import layers as L
 from repro_torch.models import quant as Q
 
@@ -180,6 +182,42 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                  pos=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def init_kv_pool(cfg: ModelConfig, num_blocks: int, block_size: int, *,
+                 device) -> Cache:
+    """Pooled KV cache: k, v (L, NB, bs, KH, hd) bf16 zeros, indexed by
+    per-slot block tables (logical block j of slot b is pool block
+    ``tables[b, j]``).  Dense attention families only, as the reference asserts."""
+    _require_dense(cfg)
+    a = cfg.attention
+    kv = (cfg.num_layers, num_blocks, block_size, a.num_kv_heads, a.head_dim)
+    return Cache(k=torch.zeros(kv, dtype=torch.bfloat16, device=device),
+                 v=torch.zeros(kv, dtype=torch.bfloat16, device=device),
+                 pos=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _pool_writes(dest, n_rows: int):
+    """Rows to write for flat pool rows ``dest`` (N,), dropping any outside
+    [0, n_rows) as JAX's scatter does, with no host sync: lane i writes the
+    new row of lane ``src[i]`` at pool row ``at[i]``.  A dropped lane takes
+    the source and target of the first kept lane, so targets that repeat
+    carry equal rows and the order of the writes does not matter; when no
+    lane is kept (``any_kept`` false) every lane rewrites what ``at[i]``
+    holds.  Returns (src, at, any_kept)."""
+    keep = (dest >= 0) & (dest < n_rows)
+    first = keep.to(torch.int32).argmax()       # 0 when none is kept
+    lanes = torch.arange(dest.shape[0], device=dest.device)
+    src = torch.where(keep, lanes, first)
+    return src, dest[src].clamp(0, n_rows - 1), keep.any()
+
+
+def _write_rows(flat, src, at, any_kept, new):
+    """``flat`` (..., R, KH, hd) pool rows, in place: row ``at[i]`` takes
+    ``new[..., src[i], :, :]`` (see `_pool_writes`)."""
+    flat[..., at, :, :] = torch.where(any_kept,
+                                      new[..., src, :, :].to(flat.dtype),
+                                      flat[..., at, :, :])
+
+
 # ---------------------------------------------------------------------------
 # Layer body
 # ---------------------------------------------------------------------------
@@ -264,39 +302,89 @@ def decode_step_paged(cfg: ModelConfig, p, cache: Cache, tokens, seq_lens,
     attended); active (B,) bool — slots past their budget keep their
     seq_len (their lane still computes; the caller discards its output).
 
+    ``tables`` (B, nb) int32 switches to the pooled cache of `init_kv_pool`
+    (k, v (L, NB, bs, KH, hd)): the new token's KV goes to pool row
+    ``tables[b, pos // bs] * bs + pos % bs`` (pos = min(seq_len, nb*bs-1);
+    a row outside the pool is dropped) and attention runs through
+    ``ops.paged_decode_attention_bt``.
+
     Returns (logits (B, V), cache (updated in place), seq_lens + active).
     """
     _require_dense(cfg)
-    if tables is not None:
-        raise NotImplementedError(
-            "pooled (block-table) decode waits for ROADMAP.md queue 1, "
-            "item 6 and queue 2, item 3")
     a = cfg.attention
     B = tokens.shape[0]
-    S = cache.k.shape[2]
     seq_lens = seq_lens.to(torch.int32)
     x = embed_tokens(cfg, p, tokens[:, None])            # (B, 1, D)
     q_pos = seq_lens[:, None]                            # per-slot positions
-    rows = torch.arange(B, device=tokens.device)
-    # frozen slots write a garbage row one past their (frozen) length —
-    # never read, and overwritten by the next admission's cache_insert
-    idx = seq_lens.clamp(max=S - 1).long()
-    lens_now = (seq_lens + 1).clamp(max=S)
+    if tables is None:
+        S = cache.k.shape[2]
+        rows = torch.arange(B, device=tokens.device)
+        # frozen slots write a garbage row one past their (frozen) length —
+        # never read, and overwritten by the next admission's cache_insert
+        idx = seq_lens.clamp(max=S - 1).long()
+        lens_now = (seq_lens + 1).clamp(max=S)
+    else:
+        tables = tables.to(torch.int32).contiguous()
+        NB, bs = cache.k.shape[1], cache.k.shape[2]
+        W = tables.shape[1] * bs
+        # overflow clamps into the slot's last block, as in the dense cache
+        pos = seq_lens.clamp(max=W - 1).long()
+        phys = tables.long().gather(1, (pos // bs)[:, None])[:, 0]
+        src, at, any_kept = _pool_writes(phys * bs + pos % bs, NB * bs)
+        lens_now = (seq_lens + 1).clamp(max=W)
     for l, win in enumerate(_windows(cfg)):
         lp = _layer(p["layers"], l)
         h = L.apply_norm(cfg, lp["ln1"], x)
         q, k, v = L.attention_qkv(lp["attn"], h, a, q_pos)
         kc, vc = cache.k[l], cache.v[l]
-        kc[rows, idx] = k[:, 0].to(kc.dtype)
-        vc[rows, idx] = v[:, 0].to(vc.dtype)
-        o = OPS.paged_decode_attention(
-            q[:, 0], kc, vc, lens_now, window=win,
-            softcap=a.logit_softcap, scale=a.attn_scale)
+        kw = dict(window=win, softcap=a.logit_softcap, scale=a.attn_scale)
+        if tables is None:
+            kc[rows, idx] = k[:, 0].to(kc.dtype)
+            vc[rows, idx] = v[:, 0].to(vc.dtype)
+            o = OPS.paged_decode_attention(q[:, 0], kc, vc, lens_now, **kw)
+        else:
+            _write_rows(kc.flatten(0, 1), src, at, any_kept, k[:, 0])
+            _write_rows(vc.flatten(0, 1), src, at, any_kept, v[:, 0])
+            o = OPS.paged_decode_attention_bt(q[:, 0], kc, vc, lens_now,
+                                              tables, **kw)
         x = _layer_tail(cfg, lp, x, L.attention_out(lp["attn"], o[:, None]))
     act_i = active.to(torch.int32)
     torch.maximum(cache.pos, (seq_lens + act_i).max(), out=cache.pos)
     x = L.apply_norm(cfg, p["final_norm"], x)
     return unembed(cfg, p, x)[:, 0], cache, seq_lens + act_i
+
+
+def pool_view(pool: Cache, tables) -> Cache:
+    """Each slot's logical view (L, B, nb * bs, KH, hd) of the pooled
+    cache, gathered with the table clamped to [0, NB - 1] (an unadmitted
+    slot's view is whatever that block holds; its lanes are masked).  It
+    shares ``pool.pos``."""
+    return Cache(k=REF.pool_rows(pool.k, tables, dim=1),
+                 v=REF.pool_rows(pool.v, tables, dim=1), pos=pool.pos)
+
+
+def _write_back(pool: Cache, view: Cache, tables, lens0, budget,
+                num_steps: int) -> None:
+    """Copy the rows a chunk decoded on `pool_view`'s ``view`` into the
+    pool, in place: slot b wrote logical row ``lens0[b] + i`` at step i for
+    its first min(budget, num_steps) steps, clamped to the last lane (the
+    last write there wins); a row outside the pool is dropped.  The rows lie
+    past each prompt, in the slot's private blocks."""
+    Ls, NB, bs = pool.k.shape[:3]
+    B, nb = tables.shape
+    W = nb * bs
+    i = torch.arange(num_steps, device=tables.device)[None, :]
+    n = budget.long().clamp(max=num_steps)[:, None]
+    rows = lens0.long()[:, None] + i                      # (B, steps)
+    rowc = rows.clamp(max=W - 1)
+    keep = (i < n) & ((rows < W - 1) | (i == n - 1))
+    phys = tables.long().gather(1, rowc // bs)
+    dest = torch.where(keep, phys * bs + rowc % bs, NB * bs).reshape(-1)
+    src, at, any_kept = _pool_writes(dest, NB * bs)
+    b_idx = torch.arange(B, device=tables.device).repeat_interleave(num_steps)
+    for x, y in ((pool.k, view.k), (pool.v, view.v)):
+        _write_rows(x.flatten(1, 2), src, at, any_kept,
+                    y[:, b_idx, rowc.reshape(-1)])
 
 
 # ---------------------------------------------------------------------------
@@ -351,12 +439,15 @@ def decode_n(cfg: ModelConfig, p, cache: Cache, tokens, seq_lens, budget, *,
     Sampling (``greedy=False``) needs ``seed``; ``salt`` (B,) is a
     per-request value (default: the slot index).
 
+    ``tables`` (B, nb) int32 decodes over the pooled cache of
+    `init_kv_pool`, as the reference does: each slot's logical view is
+    gathered ONCE (`pool_view`), the steps run on it as on a per-slot
+    cache (``ops.paged_decode_attention``), and the rows they wrote go back
+    to the pool at the end (`_write_back`).  So the chunk equals the
+    per-slot decode on the gathered view, bit for bit.
+
     Returns (toks (num_steps, B) int32, cache, seq_lens, last_tokens).
     """
-    if tables is not None:
-        raise NotImplementedError(
-            "pooled (block-table) decode waits for ROADMAP.md queue 1, "
-            "item 6")
     if not greedy and seed is None:
         raise ValueError("sampling decode (greedy=False) needs a seed")
     dev = cache.k.device
@@ -365,7 +456,11 @@ def decode_n(cfg: ModelConfig, p, cache: Cache, tokens, seq_lens, budget, *,
             if salt is not None
             else torch.arange(budget.shape[0], dtype=torch.int32, device=dev))
     toks = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
-    lens = torch.as_tensor(seq_lens, dtype=torch.int32, device=dev)
+    lens = lens0 = torch.as_tensor(seq_lens, dtype=torch.int32, device=dev)
+    pool = None
+    if tables is not None:
+        tables = torch.as_tensor(tables, dtype=torch.int32, device=dev)
+        pool, cache = cache, pool_view(cache, tables)
     produced = torch.zeros_like(budget)
     out = []
     for _ in range(num_steps):
@@ -379,4 +474,7 @@ def decode_n(cfg: ModelConfig, p, cache: Cache, tokens, seq_lens, budget, *,
         toks = torch.where(active, pick, toks)
         produced = produced + active.to(torch.int32)
         out.append(toks)
+    if pool is not None:
+        _write_back(pool, cache, tables, lens0, budget, num_steps)
+        cache = pool
     return torch.stack(out), cache, lens, toks

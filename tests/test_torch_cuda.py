@@ -2,8 +2,10 @@
 version, the wrappers' input checks and launch counts, the engine's
 chunk invariance through the kernels, the DLRM forward through the
 embedding kernels, DLRM training through both lookup routes (the fused
-scatter is the backward of each) against the CPU, and the single-table
-lookup, the scatter of deduplicated ids and the int8 fused lookup.
+scatter is the backward of each) against the CPU, the single-table
+lookup, the scatter of deduplicated ids and the int8 fused lookup, and
+the pooled block-table and int8-KV decode kernels with the pooled decode
+path of reduced olmo-1b.
 
 Every test needs an sm_90 card and skips elsewhere.  This file imports no
 JAX, so it runs where JAX is not installed:
@@ -28,7 +30,11 @@ each row space's largest |gradient|.  The single-table lookup and the
 int8 fused lookup add in column order, as the fused lookup: EMB_ATOL,
 EMB_RTOL; the int8 lookup is also within half a scale a row of the f32
 one.  The scatter of deduplicated ids sums each run of equal ids in
-index order: bitwise the plain version.  DLRM logits and gradients (bf16 tower,
+index order: bitwise the plain version.  The pooled decode kernels read
+each row through its table and otherwise run the per-slot body, so they
+equal the per-slot kernels on the gathered view bit for bit (bf16 and
+int8); the int8 decodes widen each element (f32) as the plain versions
+do: ATOL, RTOL.  DLRM logits and gradients (bf16 tower,
 cuBLAS vs the CPU's matmuls) agree to 2^-5 of the largest |value|; Adam
 on the same gradients to ADAM_RTOL = 1e-6 of each leaf's largest |x|.
 """
@@ -620,3 +626,220 @@ def test_ops_routes_cuda_tensors_to_the_sparsecore_kernels(card):
     ops.fused_lookup_q(qg, qs, rows, slots, 16)
     assert (EL.launches, ES.launches, FL.launches_q) == (e0 + 1, s0 + 1,
                                                          q0 + 1)
+
+
+# ---------------------------------------------------------------------------
+# Pooled block-table decode and int8-KV decode (rows 3, 1q, 3q)
+# ---------------------------------------------------------------------------
+
+POOL_CASES = [                  # (B, H, KH, d, bs, nb, lens), options
+    ((3, 8, 2, 16, 8, 6, [0, 1, 48]), dict(window=8)),
+    ((3, 4, 1, 64, 16, 5, [80, 33, 0]), dict(softcap=5.0)),
+    ((2, 16, 2, 128, 64, 5, [300, 129]), dict(window=100, softcap=20.0)),
+    ((2, 4, 4, 128, 8, 40, [320, 7]), dict(scale=0.3)),
+    ((8, 16, 16, 128, 16, 64, [0, 1, 100, 257, 512, 700, 1000, 1024]),
+     dict()),
+]
+
+
+def _pool_case(rng, dev, B, H, KH, d, bs, nb):
+    """q, a pool of 2 * B * nb blocks of random bf16 rows, and tables that
+    permute it: slot 1 shares slot 0's first block and the last slot's
+    final table entry is the sentinel NB."""
+    NB = 2 * B * nb
+    q = _bf16(rng, dev, B, H, d)
+    k, v = _bf16(rng, dev, NB, bs, KH, d), _bf16(rng, dev, NB, bs, KH, d)
+    t = rng.permutation(NB)[:B * nb].reshape(B, nb).astype(np.int32)
+    t[1, 0] = t[0, 0]
+    t[-1, -1] = NB
+    return q, k, v, torch.from_numpy(t).to(dev)
+
+
+@pytest.mark.parametrize("shape,kw", POOL_CASES, ids=str)
+def test_pooled_and_int8_decode_kernels_match_plain(card, shape, kw):
+    """Rows 3, 1q and 3q against their plain versions; the pooled launches
+    bitwise the per-slot ones on the gathered view."""
+    B, H, KH, d, bs, nb, lens = shape
+    rng = np.random.default_rng(d + bs)
+    q, k, v, tables = _pool_case(rng, card, B, H, KH, d, bs, nb)
+    lens = torch.tensor(lens, dtype=torch.int32, device=card)
+    got = DA.paged_decode_attention_bt(q, k, v, lens, tables, **kw)
+    _close(got, REF.paged_decode_attention_bt_ref(q, k, v, lens, tables,
+                                                  **kw))
+    assert not got[lens == 0].any()
+    flat = DA.paged_decode_attention(q, REF.pool_rows(k, tables),
+                                     REF.pool_rows(v, tables), lens, **kw)
+    assert torch.equal(got, flat)
+    (kq, ks), (vq, vs) = QU.quantize_kv(k), QU.quantize_kv(v)
+    got_q = DA.paged_decode_attention_bt_q8(q, kq, ks, vq, vs, lens, tables,
+                                            **kw)
+    _close(got_q, REF.paged_decode_attention_bt_ref(
+        q, kq, vq, lens, tables, k_scale=ks, v_scale=vs, **kw))
+    view = [REF.pool_rows(x, tables) for x in (kq, ks, vq, vs)]
+    flat_q = DA.paged_decode_attention_q8(q, *view, lens, **kw)
+    _close(flat_q, REF.paged_decode_attention_ref(
+        q, view[0], view[2], lens, k_scale=view[1], v_scale=view[3], **kw))
+    assert torch.equal(got_q, flat_q)
+
+
+# The per-slot bf16 decode kernel's bits from before its body was shared
+# with the int8 and pooled variants: sha256 of `_row1_bits`' outputs, from
+# that kernel built by nvcc 12.9 (V12.9.86) for sm_90a and run on an H100.
+# The shared body's per-slot bf16 instantiation computes the same bits.
+ROW1_SHA256 = ("aa91d94bc2dd9fb176d96c8446f7bd57"
+               "72b3a46aefb50722023a021017868ab9")
+
+
+def _row1_bits(dev):
+    import hashlib
+    h = hashlib.sha256()
+    for (B, H, KH, S, d, lens), kw in DECODE_CASES:
+        rng = np.random.default_rng(S)
+        q, k, v = (_bf16(rng, dev, B, H, d), _bf16(rng, dev, B, S, KH, d),
+                   _bf16(rng, dev, B, S, KH, d))
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = DA.paged_decode_attention(q, k, v, lens, **kw)
+        h.update(out.view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def test_decode_kernel_bits_unchanged(card):
+    assert _row1_bits(card) == ROW1_SHA256
+
+
+def test_pooled_and_int8_wrappers_reject_what_the_kernels_do_not_take(card):
+    rng = np.random.default_rng(2)
+    q, k, v, tables = _pool_case(rng, card, 2, 4, 2, 16, 8, 3)
+    lens = torch.tensor([3, 20], dtype=torch.int32, device=card)
+    (kq, ks), (vq, vs) = QU.quantize_kv(k), QU.quantize_kv(v)
+    with pytest.raises(ValueError, match="int32"):
+        DA.paged_decode_attention_bt(q, k, v, lens, tables.long())
+    with pytest.raises(ValueError, match="tables must be"):
+        DA.paged_decode_attention_bt(q, k, v, lens, tables[:1].contiguous())
+    with pytest.raises(ValueError, match="bfloat16"):
+        DA.paged_decode_attention_bt(q, k.float(), v.float(), lens, tables)
+    with pytest.raises(ValueError, match="int8"):
+        DA.paged_decode_attention_bt_q8(q, k, ks, v, vs, lens, tables)
+    with pytest.raises(ValueError, match="float32"):
+        DA.paged_decode_attention_bt_q8(q, kq, ks.double(), vq, vs, lens,
+                                        tables)
+    with pytest.raises(ValueError, match="one scale a row"):
+        DA.paged_decode_attention_bt_q8(q, kq, ks[:, :4].contiguous(), vq,
+                                        vs[:, :4].contiguous(), lens, tables)
+    with pytest.raises(ValueError, match="CUDA"):
+        DA.paged_decode_attention_bt(q, k, v, lens, tables.cpu())
+    sk, ss = REF.pool_rows(kq, tables), REF.pool_rows(ks, tables)
+    with pytest.raises(ValueError, match="bfloat16"):
+        DA.paged_decode_attention_q8(q.float(), sk, ss, sk, ss, lens)
+    with pytest.raises(ValueError, match="one scale a row"):
+        DA.paged_decode_attention_q8(q, sk, ss[:, :8].contiguous(), sk,
+                                     ss[:, :8].contiguous(), lens)
+
+
+def test_ops_routes_cuda_int8_and_pooled_tensors_to_the_kernels(card):
+    rng = np.random.default_rng(3)
+    q, k, v, tables = _pool_case(rng, card, 2, 4, 2, 16, 8, 3)
+    lens = torch.tensor([3, 20], dtype=torch.int32, device=card)
+    (kq, ks), (vq, vs) = QU.quantize_kv(k), QU.quantize_kv(v)
+    view = [REF.pool_rows(x, tables) for x in (kq, ks, vq, vs)]
+    n0 = (DA.launches_q, DA.launches_bt, DA.launches_bt_q)
+    ops.paged_decode_attention(q, view[0], view[2], lens, k_scale=view[1],
+                               v_scale=view[3])
+    ops.paged_decode_attention_bt(q, k, v, lens, tables)
+    ops.paged_decode_attention_bt(q, kq, vq, lens, tables, k_scale=ks,
+                                  v_scale=vs)
+    assert (DA.launches_q, DA.launches_bt, DA.launches_bt_q) == tuple(
+        n + 1 for n in n0)
+
+
+def fill_pool(pool, dense, lens, tables):
+    """Copy rows [0, lens[b]) of slot b of the per-slot cache ``dense``
+    (k, v (L, B, S, KH, hd)) into the pool blocks ``tables[b]`` names, in
+    place; a block an earlier slot filled (a shared prefix block) keeps
+    that slot's rows.  Returns the set of blocks filled.  (Also used by
+    ``tests/test_torch_pooled.py``.)"""
+    filled = set()
+    bs = pool.k.shape[2]
+    for b, n in enumerate(lens):
+        for j in range(-(-int(n) // bs)):
+            blk = int(tables[b][j])
+            if blk in filled:
+                continue
+            rows = min(bs, int(n) - j * bs)
+            for dst, src in ((pool.k, dense.k), (pool.v, dense.v)):
+                dst[:, blk, :rows] = src[:, b, j * bs:j * bs + rows]
+            filled.add(blk)
+    return filled
+
+
+def test_pooled_decode_invariants_on_card(card):
+    """Reduced olmo-1b over a pool (bs 8, 4 slots, slot 1 sharing slot 0's
+    first block, slot 3 unadmitted): a greedy loop of pooled steps (row 3)
+    gives, bit for bit, the logits of the same loop on the view gathered
+    once (row 1) on the admitted slots, and the tokens and pool of
+    ``api.decode_n(tables=)``; blocks no slot decodes into are unchanged,
+    and ``decode_n(tables=)`` does not depend on the chunk."""
+    from repro_torch.models import transformer as TF
+    cfg = registry.get_reduced("olmo-1b")
+    p = api.init_params(cfg, seed=0, device=card)
+    rng = np.random.default_rng(4)
+    cached = [11, 17, 6, 0]
+    bs, nb, NB = 8, 4, 24
+    t = rng.permutation(NB)[:4 * nb].reshape(4, nb).astype(np.int32)
+    t[1, 0] = t[0, 0]
+    t[3] = NB
+    tables = torch.from_numpy(t).to(card)
+    toks = rng.integers(0, 512, size=(4, max(cached) + 1)).astype(np.int32)
+    toks[1, :bs] = toks[0, :bs]
+    _, dense = api.prefill(cfg, p, {"tokens": torch.from_numpy(
+        toks[:, :max(cached)]).to(card)})
+    start = api.init_kv_pool(cfg, NB, bs, device=card)
+    for x in (start.k, start.v):
+        x.normal_()
+    fill_pool(start, dense, cached, t)
+    feed = torch.tensor([toks[b, n] for b, n in enumerate(cached)],
+                        dtype=torch.int32, device=card)
+    lens0 = torch.tensor(cached, dtype=torch.int32, device=card)
+    budget = torch.tensor([5, 5, 5, 0], dtype=torch.int32, device=card)
+
+    def copy(c):
+        return TF.Cache(k=c.k.clone(), v=c.v.clone(), pos=c.pos.clone())
+
+    def loop(cache, tables_):
+        tk, ln = feed, lens0
+        produced = torch.zeros_like(budget)
+        outs, logits = [], []
+        for _ in range(5):
+            active = produced < budget
+            lg, cache, ln = TF.decode_step_paged(cfg, p, cache, tk, ln,
+                                                 active, tables=tables_)
+            tk = torch.where(active, torch.argmax(lg, -1).to(torch.int32), tk)
+            produced += active.to(torch.int32)
+            outs.append(tk)
+            logits.append(lg)
+        return torch.stack(outs), torch.stack(logits), cache
+
+    b0, bt0 = DA.launches, DA.launches_bt
+    a_toks, a_logits, a_pool = loop(copy(start), tables)
+    b_toks, b_logits, _ = loop(TF.pool_view(copy(start), tables), None)
+    assert DA.launches_bt - bt0 == 5 * cfg.num_layers
+    assert DA.launches - b0 == 5 * cfg.num_layers
+    assert torch.equal(a_logits[:, :3], b_logits[:, :3])
+    c_toks, c_pool, _, _ = api.decode_n(cfg, p, copy(start), feed, lens0,
+                                        budget, num_steps=5, tables=tables)
+    assert torch.equal(a_toks, b_toks) and torch.equal(a_toks, c_toks)
+    assert torch.equal(a_pool.k, c_pool.k) and torch.equal(a_pool.v,
+                                                           c_pool.v)
+    decoded = {int(t[b, r // bs]) for b in range(3)
+               for r in range(cached[b], cached[b] + 5)}
+    keep = [blk for blk in range(NB) if blk not in decoded]
+    assert int(t[0, 0]) in keep
+    assert torch.equal(c_pool.k[:, keep], start.k[:, keep])
+    assert torch.equal(c_pool.v[:, keep], start.v[:, keep])
+    one, pool, l1, last = api.decode_n(cfg, p, copy(start), feed, lens0,
+                                       budget, num_steps=1, tables=tables)
+    three, pool, _, _ = api.decode_n(cfg, p, pool, last, l1,
+                                     (budget - 1).clamp_min(0), num_steps=4,
+                                     tables=tables)
+    assert torch.equal(torch.cat([one, three]), c_toks)
+    assert torch.equal(pool.k, c_pool.k) and torch.equal(pool.v, c_pool.v)
