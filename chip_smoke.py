@@ -14,15 +14,18 @@ each of which fails the run if it fails:
      GQA / window / softcap / ragged-T shapes; time the kernel, the plain
      version and ``F.scaled_dot_product_attention`` (a yardstick only: the
      port never calls it) with CUDA events over inputs rotated past the
-     50 MB L2; compute each kernel's bound from the bytes and flops these
-     inputs need; then the pooled and int8 decode kernels at the serving
+     50 MB L2, the card held for 20 ms first so the host queues the timed
+     calls (the time is the card's, not the host's launch pace), kernel
+     and SDPA in alternating turns (kernel, SDPA, SDPA, kernel); compute
+     each kernel's bound from the bytes and flops these inputs need; then
+     the pooled and int8 decode kernels at the serving
      decode shape (`pooled_kernel_phase`: a pool of 1024 blocks of 16
      rows, permuted tables with 4 shared blocks, ``quantize_kv`` of the
      same K/V; the int8 rows through ``ops`` once, counted), each against
      its plain version and the pooled ones bitwise the per-slot kernels on
      the gathered view; timed beside their plain versions and byte
      bounds, with SDPA on the gathered bf16 view (the gather apart) as a
-     yardstick;
+     yardstick, in turns with the three kernels;
   3. reference — reduced olmo-1b with the same weights on the CPU (plain
      attention) and on the card (kernels): prefill and decode logits agree;
   4. serve — full-width olmo-1b (16 layers, d_model 2048, vocab 50304; bf16
@@ -130,6 +133,9 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 # bf16 in and out, f32 inside both the kernel and its plain version: they
 # differ by the last bf16 rounding (2^-8 relative) and f32 reordering.
 KERNEL_ATOL = KERNEL_RTOL = 1e-2
+# `cuda_ms` holds the card for this many clock cycles before the timed
+# calls: ~20 ms at the H100's ~1.98 GHz
+QUEUE_AHEAD_CYCLES = 40_000_000
 # f32 in and out (embedding lookups): the kernel adds a slot's rows in
 # column order, the plain version with torch.sum's tree; at most 128 rows
 # of |x| <= ~5 differ by a few f32 ulps of the sum.  The gather is a copy.
@@ -165,19 +171,37 @@ def log(*a):
 
 
 def cuda_ms(torch, fn, n_inputs, iters=30, warmup=3):
-    """Mean ms per call of ``fn(i)`` by CUDA events; ``i`` rotates over
-    ``n_inputs`` input sets so repeated calls do not run out of L2."""
+    """Mean ms per call of ``fn(i)`` on the card by CUDA events; ``i``
+    rotates over ``n_inputs`` input sets so repeated calls do not run out
+    of L2.  The card first spins for QUEUE_AHEAD_CYCLES while the host queues
+    the timed calls, so a call shorter than its host-side launch cost is
+    timed by the card's work, not by the host's pace."""
     for i in range(warmup):
         fn(i % n_inputs)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for i in range(iters):
         fn(i % n_inputs)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# a kernel and its library yardstick, timed in alternating turns: a card
+# that drifts (clocks, power) moves both means alike
+TURNS = ("kernel", "library", "library", "kernel")
+
+
+def in_turns(torch, fns, n_inputs, order=TURNS):
+    """`cuda_ms` of ``fns[name]`` once for each appearance of name in
+    ``order``; returns ({name: mean ms}, {name: [ms of each turn]})."""
+    got = {n: [] for n in fns}
+    for n in order:
+        got[n].append(cuda_ms(torch, fns[n], n_inputs))
+    return {n: sum(v) / len(v) for n, v in got.items()}, got
 
 
 def max_err(torch, got, want, what, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
@@ -263,7 +287,6 @@ def decode_phase(torch, F, DA, REF):
     err = max_err(torch, DA.paged_decode_attention(*sets[0]),
                   REF.paged_decode_attention_ref(*sets[0]),
                   "decode at serving shapes")
-    ms = cuda_ms(torch, lambda i: DA.paged_decode_attention(*sets[i]), 3)
     plain_ms = cuda_ms(torch,
                        lambda i: REF.paged_decode_attention_ref(*sets[i]), 3)
     kpos = torch.arange(S, device=dev)
@@ -276,7 +299,10 @@ def decode_phase(torch, F, DA, REF):
             q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=masks[i])
 
-    library_ms = cuda_ms(torch, library, 3)
+    mean, turns = in_turns(torch, {
+        "kernel": lambda i: DA.paged_decode_attention(*sets[i]),
+        "library": library}, 3)
+    ms, library_ms = mean["kernel"], mean["library"]
     rows = sum(lens)
     nbytes = (2 * B * H * d * 2            # q in, out
               + 2 * rows * KH * d * 2      # the valid K and V rows
@@ -287,7 +313,7 @@ def decode_phase(torch, F, DA, REF):
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:112",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, ms_turns=turns)
 
 
 def prefill_phase(torch, F, FA, REF):
@@ -313,11 +339,13 @@ def prefill_phase(torch, F, FA, REF):
     err = max_err(torch, FA.flash_attention(*sets[0]),
                   REF.flash_attention_ref(*sets[0]),
                   "prefill at serving shapes")
-    ms = cuda_ms(torch, lambda i: FA.flash_attention(*sets[i]), 8)
     plain_ms = cuda_ms(torch, lambda i: REF.flash_attention_ref(*sets[i]), 8)
-    library_ms = cuda_ms(
-        torch, lambda i: F.scaled_dot_product_attention(*sets[i],
-                                                        is_causal=True), 8)
+    mean, turns = in_turns(torch, {
+        "kernel": lambda i: FA.flash_attention(*sets[i]),
+        "library": lambda i: F.scaled_dot_product_attention(*sets[i],
+                                                            is_causal=True)},
+        8)
+    ms, library_ms = mean["kernel"], mean["library"]
     nbytes = 4 * B * H * T * d * 2                # q, k, v in; out
     flops = 4 * B * H * d * (T * (T + 1) // 2)    # causal q.k and p.v
     bound_ms, bound_by = bound(nbytes, flops)
@@ -325,7 +353,7 @@ def prefill_phase(torch, F, FA, REF):
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:86",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, ms_turns=turns)
 
 
 
@@ -439,26 +467,26 @@ def pooled_kernel_phase(torch, np, F, DA, REF, QU, ops, dev="cuda"):
             x["q"], x["kq"], x["vq"], lens, x["t"], k_scale=x["ks"],
             v_scale=x["vs"])
 
-    # in turns (3, 1q, 3q, 3q, 1q, 3): ms is the mean of the two
-    kern = {"bt": bt, "q8": q8, "bt_q8": bt_q8}
-    turns = {n: [] for n in kern}
-    for n in ("bt", "q8", "bt_q8", "bt_q8", "q8", "bt"):
-        turns[n].append(cuda_ms(torch, kern[n], 6))
-    ms = {n: sum(v) / len(v) for n, v in turns.items()}
-    plain_ms = {n: cuda_ms(torch, f, 6) for n, f in
-                (("bt", bt_plain), ("q8", q8_plain), ("bt_q8", bt_q8_plain))}
-    # yardstick: the gather of the bf16 view, then SDPA on it
+    # yardstick: SDPA on the bf16 view gathered beforehand (the gather
+    # timed apart); in turns with the three kernels (3, 1q, 3q, SDPA, SDPA,
+    # 3q, 1q, 3): ms is the mean of the two
     views = [(REF.pool_rows(x["k"], x["t"]), REF.pool_rows(x["v"], x["t"]))
              for x in sets]
     kpos = torch.arange(POOL_NB * POOL_BS, device=dev)
     mask = (kpos[None, :] < lens[:, None].long())[:, None, None, :]
+    fns = {"bt": bt, "q8": q8, "bt_q8": bt_q8,
+           "sdpa": lambda i: F.scaled_dot_product_attention(
+               sets[i]["q"][:, :, None], views[i][0].transpose(1, 2),
+               views[i][1].transpose(1, 2), attn_mask=mask)}
+    ms, turns = in_turns(torch, fns, 6, ("bt", "q8", "bt_q8", "sdpa", "sdpa",
+                                         "bt_q8", "q8", "bt"))
+    plain_ms = {n: cuda_ms(torch, f, 6) for n, f in
+                (("bt", bt_plain), ("q8", q8_plain), ("bt_q8", bt_q8_plain))}
     gather_ms = cuda_ms(torch, lambda i: (
         REF.pool_rows(sets[i]["k"], sets[i]["t"]),
         REF.pool_rows(sets[i]["v"], sets[i]["t"])), 6)
-    sdpa_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-        sets[i]["q"][:, :, None], views[i][0].transpose(1, 2),
-        views[i][1].transpose(1, 2), attn_mask=mask), 6)
-    del views
+    sdpa_ms = ms["sdpa"]
+    del views, fns
 
     rows = sum(lens_l)
     io = 2 * B * H * d * 2 + B * 4          # q in, out, seq_lens
@@ -485,7 +513,8 @@ def pooled_kernel_phase(torch, np, F, DA, REF, QU, ops, dev="cuda"):
                       bound_by=bound_by, library_ms=None, bytes=nbytes[n],
                       ms_turns=turns[n], launches=launches.get(name))
     out["yardstick"] = {"gather_bf16_view_ms": gather_ms,
-                        "sdpa_on_gathered_view_ms": sdpa_ms}
+                        "sdpa_on_gathered_view_ms": sdpa_ms,
+                        "sdpa_ms_turns": turns["sdpa"]}
     return out
 
 

@@ -37,15 +37,18 @@ _PI = ctypes.POINTER(ctypes.c_int)      # a host array of ints
 # C signature of every kernel entry point: argtypes must be declared, or
 # ctypes passes each pointer as a 32-bit int and cuts it.
 SIGNATURES = {
+    "repro_decode_attention_partials": [_I, _I, _I, _I, _I],
     "repro_decode_attention_bf16":
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    "repro_decode_attention_q8":
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "repro_decode_attention_q8":
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+         _P],
     "repro_decode_attention_bt_bf16":
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    "repro_decode_attention_bt_q8":
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
          _F, _P],
+    "repro_decode_attention_bt_q8":
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+         _I, _F, _F, _P],
     "repro_flash_attention_bf16":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "repro_fused_lookup_f32":
@@ -59,6 +62,8 @@ SIGNATURES = {
     "repro_fused_scatter_f32":
         [_PP, _PI, _PI, _I, _P, _P, _L, _P, _P, _I, _I, _I, _P],
 }
+# entry points that return something other than a cudaError_t
+RESTYPES = {"repro_decode_attention_partials": _L}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
@@ -144,7 +149,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         _lib = lib
     return _lib
 

@@ -23,30 +23,39 @@
 //
 // Bound on the H100: bytes.  Each valid K/V row is read once and used for
 // G query heads only (2 * G flops per byte of bf16, 4 * G of int8), far
-// under the ~295 flop/byte ridge, so the kernel's job is to stream seq_len
-// rows per slot and touch nothing else.  Design:
-//   * one block per (slot b, KV head): the G query heads of that KV head
-//     share every K/V row the block loads;
-//   * the block walks only the logical rows [window start, seq_len) in
-//     tiles of TILE rows staged through shared memory with 16-byte loads;
-//     no row past the slot's length is read, so the cache needs no padding;
-//   * where a row lies is the only thing the pooled variant changes: each
-//     row's address goes through the slot's table (row by row, so a tile
-//     may span pool blocks of any size bs), and the tile walk, the score,
-//     softmax and accumulator order are those of the per-slot variant, so a
-//     pooled launch computes the same bits as a per-slot launch on the
-//     gathered view;
-//   * int8 rows stage as int8 (TILE * D bytes; a row of D = 16 is one
-//     16-byte vector) with the tile's TILE scales beside them, and each
-//     element is widened on read, (float)x * scale, before its product, as
-//     the Pallas body dequantises right after the load.  Staging f32 tiles
-//     would need 64 KB of static shared memory at D = 128 (the limit is
-//     48 KB);
-//   * online softmax in f32 (running max, sum and accumulator), as the
-//     Pallas body keeps in VMEM scratch.
-// Not yet done (a later PR): double-buffered cp.async/TMA staging, and
-// splitting long caches over several blocks per (b, KV head) to fill the
-// 132 SMs when B * KH is small.
+// under the ~295 flop/byte ridge.  At the serving shape (B = 8, H = KH =
+// 16, d = 128, lengths 0-1024: 3,594 rows a head) that is 29.5 MB, 8.8 us.
+// The first port ran one block per (slot, KV head): 128 blocks, the one
+// holding the 1024-row slot walking 16 tiles alone, a serial one-thread
+// softmax and four barriers a tile; it took 17x the bound.  Design:
+//   * split-KV: each (slot, KV head) is cut into chunks of CHUNK logical
+//     rows; one block per (chunk, KV head x head group, slot) computes a
+//     partial (m, l, acc) over the rows of its chunk that the slot attends.
+//     A chunk wholly past seq_len or before the window start exits at
+//     once.  The chunk bounds and every sum's order are functions of the
+//     logical row index alone (not of S, B, the grid or the card), so a
+//     pooled launch computes the per-slot launch's bits on the gathered
+//     view, and two launches on the same inputs agree bit for bit;
+//   * no shared-memory staging: a lane holds 8 elements of a row (16 bytes
+//     of bf16, 8 of int8, widened on read as (float)x * scale), D / 8
+//     lanes a row, so a warp load covers 32 / (D / 8) rows; each lane
+//     keeps U rows of K and V in flight, the score is a shuffle reduction
+//     over the row's lanes, and every group of lanes keeps its own running
+//     (m, l, acc) in registers over its rows (U + 1 exps for U rows);
+//   * the groups of a warp merge by shuffles, the warps of a block once
+//     through shared memory, at the end of the chunk;
+//   * one launch: a chunk's partial goes to a workspace, and the last block
+//     of a (slot, KV head, head group) to finish (a counter, after
+//     __threadfence) combines the partials in chunk order, writes the
+//     output and resets the counter for the next launch.  A slot whose
+//     rows lie in one chunk skips the workspace.  The wrapper allocates
+//     the workspace (repro_decode_attention_partials floats, B * H zeroed
+//     counters) once and caches it;
+//   * G query heads share each K/V row a block loads: up to GB = 8 heads a
+//     block (their q slices and accumulators in registers), more heads in
+//     more head groups.
+// Left for later: TMA/cp.async staging of the rows of a pooled block, and
+// a chunk size chosen per shape (it is fixed so the bits do not move).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,11 +64,14 @@
 
 namespace {
 
-constexpr int NT = 128;         // threads per block
-constexpr int TILE = 64;        // KV rows per shared-memory tile
-constexpr int MAX_GD = 1024;    // G * D a block holds (accumulators)
-constexpr int NACC = MAX_GD / NT;
+constexpr int NW = 4;             // warps per block
+constexpr int NT = NW * 32;       // threads per block
+constexpr int CHUNK = 128;        // logical rows a block walks
+constexpr int MAX_GD = 1024;      // G * D the wrapper allows
 constexpr float NEG_INF = -1e30f;
+
+// Query heads a block holds for a head count G (GB in the kernel).
+constexpr int heads_per_block(int G) { return G == 1 ? 1 : 8; }
 
 // Where the cache rows of slot b lie.
 struct Rows {
@@ -82,145 +94,282 @@ __device__ __forceinline__ size_t cache_row(int b, int t, const Rows& r) {
   }
 }
 
-// Element (j, d) of a staged tile as f32: bf16 widened, int8 times the
-// scale of its row.
-template <int D, typename T>
-__device__ __forceinline__ float tile_at(const T* tile, const float* sc,
-                                         int j, int d) {
-  if constexpr (std::is_same<T, int8_t>::value)
-    return (float)tile[j * D + d] * sc[j];
-  else
-    return __bfloat162float(tile[j * D + d]);
+// 8 elements of a row: one 16-byte load of bf16, one 8-byte load of int8.
+template <typename T>
+using Vec8 = typename std::conditional<std::is_same<T, int8_t>::value,
+                                       uint2, uint4>::type;
+
+// The 8 elements as f32: bf16 widened, int8 times its row's scale.
+template <typename T>
+__device__ __forceinline__ void widen(const Vec8<T>& raw, float sc,
+                                      float (&x)[8]) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = (float)e[i] * sc;
+  } else {
+    const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(e[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
 }
 
-template <int D, typename T, bool POOLED>
+// Merge a running softmax state (m, l, acc) with another (mo, lo, acco).
+__device__ __forceinline__ void merge(float& m, float& l, float* acc, int n,
+                                      float mo, float lo, const float* acco) {
+  const float M = fmaxf(m, mo);
+  const float a = expf(m - M), ao = expf(mo - M);
+  l = l * a + lo * ao;
+  for (int i = 0; i < n; ++i) acc[i] = acc[i] * a + acco[i] * ao;
+  m = M;
+}
+
+template <int D, int GB, typename T, bool POOLED>
 __global__ void __launch_bounds__(NT) decode_attention_kernel(
     const __nv_bfloat16* __restrict__ q, const T* __restrict__ k,
     const float* __restrict__ k_scale, const T* __restrict__ v,
     const float* __restrict__ v_scale, const int* __restrict__ seq_lens,
-    const Rows rows, __nv_bfloat16* __restrict__ out, int H, int KH,
+    const Rows rows, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ part, int* __restrict__ count, int H, int KH,
     int window, float softcap, float scale) {
   constexpr bool Q8 = std::is_same<T, int8_t>::value;
-  static_assert(D % 16 == 0 && MAX_GD % D == 0, "head_dim");
-  constexpr int MAXG = MAX_GD / D;
-  constexpr int VPR = D * (int)sizeof(T) / 16;  // 16-byte vectors per row
-  __shared__ float qs[MAXG * D];
-  __shared__ __align__(16) T ks[TILE * D];
-  __shared__ __align__(16) T vs[TILE * D];
-  __shared__ float kss[Q8 ? TILE : 1], vss[Q8 ? TILE : 1];
-  __shared__ float ps[MAXG * TILE];
-  __shared__ float m_s[MAXG], l_s[MAXG], alpha_s[MAXG];
+  static_assert(D % 16 == 0 && D <= 128, "head_dim");
+  constexpr int LPR = D / 8;             // lanes a row
+  constexpr int RPW = 32 / LPR;          // rows a warp load covers
+  constexpr int U = GB == 1 ? 8 : 2;     // warp loads a lane keeps in flight
+  constexpr int STEP = NW * U * RPW;     // rows a block covers per step
+  constexpr int PS = GB * (D + 2);       // floats of one partial
+  __shared__ float wm[NW][GB], wl[NW][GB];
+  __shared__ float wacc[NW][GB * D];
+  __shared__ int last;
 
-  const int b = blockIdx.x, kh = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int G = H / KH;
-  const int GD = G * D;
+  const int c = blockIdx.x, y = blockIdx.y, b = blockIdx.z;
+  const int G = H / KH, NHG = (G + GB - 1) / GB;
+  const int kh = y / NHG, hg = y % NHG;
+  const int h0 = kh * G + hg * GB;       // first query head of the block
+  const int ng = min(GB, G - hg * GB);   // its query heads
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = lane / LPR, sub = lane % LPR;
+  __nv_bfloat16* ob = out + ((size_t)b * H + h0) * D;
+
   // rows past S do not exist; clamping keeps a bad length from reading
   // outside the cache (the plain version treats such a slot as full)
   const int sl = min(max(seq_lens[b], 0), rows.S);
   const int lo = window >= 0 ? max(0, sl - window) : 0;
-
-  // the G query rows of this KV head are contiguous: heads kh*G .. kh*G+G-1
-  const __nv_bfloat16* qb = q + ((size_t)b * H + (size_t)kh * G) * D;
-  for (int i = tid; i < GD; i += NT) qs[i] = __bfloat162float(qb[i]) * scale;
-  if (tid < G) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
+  if (lo >= sl) {                        // nothing to attend: zeros, once
+    if (c == 0)
+      for (int i = tid; i < ng * D; i += NT) ob[i] = __float2bfloat16(0.f);
+    return;
   }
-  float acc[NACC];
+  const int c_lo = lo / CHUNK, c_hi = (sl - 1) / CHUNK;
+  if (c < c_lo || c > c_hi) return;
+  const int rb = max(lo, c * CHUNK), re = min(sl, (c + 1) * CHUNK);
+
+  float qv[GB][8], m[GB], l[GB], acc[GB][8];
 #pragma unroll
-  for (int r = 0; r < NACC; ++r) acc[r] = 0.f;
+  for (int gi = 0; gi < GB; ++gi) {
+    if (gi < ng) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          q + ((size_t)b * H + h0 + gi) * D + sub * 8);
+      widen<__nv_bfloat16>(raw, 1.f, qv[gi]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qv[gi][e] *= scale;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qv[gi][e] = 0.f;
+    }
+    m[gi] = NEG_INF;
+    l[gi] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[gi][e] = 0.f;
+  }
+
+  const size_t rstride = (size_t)KH * D;   // elements between two rows
+  for (int base = c * CHUNK + warp * U * RPW; base < re; base += STEP) {
+    if (base + U * RPW <= rb) continue;
+    Vec8<T> kr[U], vr[U];
+    float ks[U], vs[U];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = base + u * RPW + grp;
+      ok[u] = t >= rb && t < re;
+      kr[u] = vr[u] = Vec8<T>{};
+      ks[u] = vs[u] = 1.f;
+      if (ok[u]) {
+        const size_t row = cache_row<POOLED>(b, t, rows);
+        const size_t at = row * rstride + (size_t)kh * D + sub * 8;
+        kr[u] = *reinterpret_cast<const Vec8<T>*>(k + at);
+        vr[u] = *reinterpret_cast<const Vec8<T>*>(v + at);
+        if constexpr (Q8) {
+          ks[u] = k_scale[row * KH + kh];
+          vs[u] = v_scale[row * KH + kh];
+        }
+      }
+    }
+    // scores: the lane's 8 products, summed over the row's LPR lanes
+    float s[U][GB];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[8];
+      widen<T>(kr[u], ks[u], kf);
+#pragma unroll
+      for (int gi = 0; gi < GB; ++gi) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d += qv[gi][e] * kf[e];
+#pragma unroll
+        for (int off = LPR / 2; off > 0; off >>= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, off);
+        if (softcap > 0.f) d = softcap * tanhf(d / softcap);
+        s[u][gi] = ok[u] ? d : NEG_INF;
+      }
+    }
+    // online softmax over the U rows, head by head
+#pragma unroll
+    for (int gi = 0; gi < GB; ++gi) {
+      float mx = m[gi];
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][gi]);
+      const float alpha = expf(m[gi] - mx);
+      float p[U], sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        p[u] = s[u][gi] <= 0.5f * NEG_INF ? 0.f : expf(s[u][gi] - mx);
+        sum += p[u];
+      }
+      l[gi] = l[gi] * alpha + sum;
+      m[gi] = mx;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[gi][e] *= alpha;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float vf[8];
+        widen<T>(vr[u], vs[u], vf);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[gi][e] += p[u] * vf[e];
+      }
+    }
+  }
+
+  // merge the row groups of the warp (lanes sub, sub + LPR, ...)
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1) {
+#pragma unroll
+    for (int gi = 0; gi < GB; ++gi) {
+      float ao[8];
+      const float mo = __shfl_xor_sync(0xffffffffu, m[gi], off);
+      const float lo_ = __shfl_xor_sync(0xffffffffu, l[gi], off);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        ao[e] = __shfl_xor_sync(0xffffffffu, acc[gi][e], off);
+      merge(m[gi], l[gi], acc[gi], 8, mo, lo_, ao);
+    }
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int gi = 0; gi < GB; ++gi) {
+      if (sub == 0) {
+        wm[warp][gi] = m[gi];
+        wl[warp][gi] = l[gi];
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) wacc[warp][gi * D + sub * 8 + e] = acc[gi][e];
+    }
+  }
   __syncthreads();
 
-  const size_t row = (size_t)KH * D;  // elements between consecutive rows
-
-  for (int t0 = lo; t0 < sl; t0 += TILE) {
-    const int n = min(TILE, sl - t0);
-    for (int i = tid; i < n * VPR; i += NT) {
-      const int j = i / VPR, c = i % VPR;
-      const size_t at = cache_row<POOLED>(b, t0 + j, rows) * row + kh * D;
-      reinterpret_cast<uint4*>(ks)[i] =
-          reinterpret_cast<const uint4*>(k + at)[c];
-      reinterpret_cast<uint4*>(vs)[i] =
-          reinterpret_cast<const uint4*>(v + at)[c];
+  // merge the warps in order; one chunk: out, else a partial
+  const int nact = c_hi - c_lo + 1;
+  const size_t slot = (size_t)b * gridDim.y + y;
+  float* pp = part + (slot * gridDim.x + c) * PS;
+  for (int i = tid; i < ng * D; i += NT) {
+    const int gi = i / D;
+    float M = NEG_INF;
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, wm[w][gi]);
+    float L = 0.f, A = 0.f;
+    for (int w = 0; w < NW; ++w) {
+      const float a = expf(wm[w][gi] - M);
+      L += wl[w][gi] * a;
+      A += wacc[w][i] * a;
     }
-    if constexpr (Q8) {
-      for (int j = tid; j < n; j += NT) {
-        const size_t at = cache_row<POOLED>(b, t0 + j, rows) * KH + kh;
-        kss[j] = k_scale[at];
-        vss[j] = v_scale[at];
+    if (nact == 1) {
+      ob[i] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+    } else {
+      if (i % D == 0) {
+        pp[gi] = M;
+        pp[GB + gi] = L;
       }
+      pp[2 * GB + i] = A;
     }
-    __syncthreads();
-
-    // scores: one warp per (query head g, row j); lanes split D
-    for (int pj = warp; pj < G * n; pj += NT / 32) {
-      const int g = pj / n, j = pj % n;
-      float s = 0.f;
-      for (int d = lane; d < D; d += 32)
-        s += qs[g * D + d] * tile_at<D>(ks, kss, j, d);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) {
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        ps[g * TILE + j] = s;
-      }
-    }
-    __syncthreads();
-
-    // online-softmax update, one thread per query head
-    if (tid < G) {
-      float* pg = ps + tid * TILE;
-      const float m_prev = m_s[tid];
-      float m_new = m_prev;
-      for (int j = 0; j < n; ++j) m_new = fmaxf(m_new, pg[j]);
-      float sum = 0.f;
-      for (int j = 0; j < n; ++j) {
-        const float p = expf(pg[j] - m_new);
-        pg[j] = p;
-        sum += p;
-      }
-      const float alpha = expf(m_prev - m_new);
-      l_s[tid] = l_s[tid] * alpha + sum;
-      m_s[tid] = m_new;
-      alpha_s[tid] = alpha;
-    }
-    __syncthreads();
-
-    // accumulator: thread owns flat (g, d) entries tid + r * NT
-#pragma unroll
-    for (int r = 0; r < NACC; ++r) {
-      const int i = tid + r * NT;
-      if (i < GD) {
-        const int g = i / D, d = i % D;
-        const float* pg = ps + g * TILE;
-        float a = acc[r] * alpha_s[g];
-        for (int j = 0; j < n; ++j) a += pg[j] * tile_at<D>(vs, vss, j, d);
-        acc[r] = a;
-      }
-    }
-    __syncthreads();  // the next tile overwrites ks, vs, their scales and ps
   }
+  if (nact == 1) return;
 
-  __nv_bfloat16* ob = out + ((size_t)b * H + (size_t)kh * G) * D;
-#pragma unroll
-  for (int r = 0; r < NACC; ++r) {
-    const int i = tid + r * NT;
-    if (i < GD) ob[i] = __float2bfloat16(acc[r] / fmaxf(l_s[i / D], 1e-30f));
+  // the last block of this (slot, KV head, head group) combines
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(count + slot, 1) == nact - 1;
+    if (last) count[slot] = 0;           // ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* p0 = part + slot * gridDim.x * PS;
+  for (int i = tid; i < ng * D; i += NT) {
+    const int gi = i / D;
+    float M = NEG_INF;
+    for (int cc = c_lo; cc <= c_hi; ++cc)
+      M = fmaxf(M, __ldcg(p0 + cc * PS + gi));
+    float L = 0.f, A = 0.f;
+    for (int cc = c_lo; cc <= c_hi; ++cc) {
+      const float a = expf(__ldcg(p0 + cc * PS + gi) - M);
+      L += __ldcg(p0 + cc * PS + GB + gi) * a;
+      A += __ldcg(p0 + cc * PS + 2 * GB + i) * a;
+    }
+    ob[i] = __float2bfloat16(A / fmaxf(L, 1e-30f));
   }
 }
 
-template <int D, typename T, bool POOLED>
+int chunks(int S) { return S > 0 ? (S + CHUNK - 1) / CHUNK : 1; }
+
+int head_groups(int H, int KH) {
+  const int G = H / KH, GB = heads_per_block(G);
+  return (G + GB - 1) / GB;
+}
+
+template <int D, int GB, typename T, bool POOLED>
 void launch(const void* q, const void* k, const void* k_scale, const void* v,
             const void* v_scale, const int* seq_lens, const Rows& rows,
-            void* out, int B, int H, int KH, int window, float softcap,
-            float scale, cudaStream_t stream) {
-  decode_attention_kernel<D, T, POOLED><<<dim3(B, KH), NT, 0, stream>>>(
+            void* out, void* part, void* count, int B, int H, int KH,
+            int window, float softcap, float scale, cudaStream_t stream) {
+  const dim3 grid(chunks(rows.S), KH * head_groups(H, KH), B);
+  decode_attention_kernel<D, GB, T, POOLED><<<grid, NT, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
       static_cast<const float*>(k_scale), static_cast<const T*>(v),
       static_cast<const float*>(v_scale), seq_lens, rows,
-      static_cast<__nv_bfloat16*>(out), H, KH, window, softcap, scale);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part),
+      static_cast<int*>(count), H, KH, window, softcap, scale);
+}
+
+template <int D, typename T, bool POOLED>
+void launch_g(const void* q, const void* k, const void* k_scale,
+              const void* v, const void* v_scale, const int* seq_lens,
+              const Rows& rows, void* out, void* part, void* count, int B,
+              int H, int KH, int window, float softcap, float scale,
+              cudaStream_t stream) {
+  if (H == KH)
+    launch<D, 1, T, POOLED>(q, k, k_scale, v, v_scale, seq_lens, rows, out,
+                            part, count, B, H, KH, window, softcap, scale,
+                            stream);
+  else
+    launch<D, 8, T, POOLED>(q, k, k_scale, v, v_scale, seq_lens, rows, out,
+                            part, count, B, H, KH, window, softcap, scale,
+                            stream);
 }
 
 // Checks the shape, picks the head_dim instantiation, launches; returns
@@ -228,25 +377,27 @@ void launch(const void* q, const void* k, const void* k_scale, const void* v,
 template <typename T, bool POOLED>
 int dispatch(const void* q, const void* k, const void* k_scale,
              const void* v, const void* v_scale, const void* seq_lens,
-             const Rows& rows, void* out, int B, int H, int KH, int D,
-             int window, float softcap, float scale, void* stream) {
-  if (B <= 0 || KH <= 0 || H % KH != 0 || (H / KH) * D > MAX_GD ||
-      rows.S < 0 || (POOLED && (rows.nb <= 0 || rows.bs <= 0 || rows.NB <= 0)))
+             const Rows& rows, void* out, void* part, void* count, int B,
+             int H, int KH, int D, int window, float softcap, float scale,
+             void* stream) {
+  if (B <= 0 || B > 65535 || KH <= 0 || H % KH != 0 ||
+      (H / KH) * D > MAX_GD || rows.S < 0 ||
+      (POOLED && (rows.nb <= 0 || rows.bs <= 0 || rows.NB <= 0)))
     return (int)cudaErrorInvalidValue;
   const int* sl = static_cast<const int*>(seq_lens);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      launch<16, T, POOLED>(q, k, k_scale, v, v_scale, sl, rows, out, B, H,
-                            KH, window, softcap, scale, st);
+      launch_g<16, T, POOLED>(q, k, k_scale, v, v_scale, sl, rows, out, part,
+                              count, B, H, KH, window, softcap, scale, st);
       break;
     case 64:
-      launch<64, T, POOLED>(q, k, k_scale, v, v_scale, sl, rows, out, B, H,
-                            KH, window, softcap, scale, st);
+      launch_g<64, T, POOLED>(q, k, k_scale, v, v_scale, sl, rows, out, part,
+                              count, B, H, KH, window, softcap, scale, st);
       break;
     case 128:
-      launch<128, T, POOLED>(q, k, k_scale, v, v_scale, sl, rows, out, B, H,
-                             KH, window, softcap, scale, st);
+      launch_g<128, T, POOLED>(q, k, k_scale, v, v_scale, sl, rows, out, part,
+                               count, B, H, KH, window, softcap, scale, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -262,35 +413,45 @@ Rows pooled(const void* tables, int NB, int bs, int nb) {
 
 }  // namespace
 
+// Floats of the workspace a launch over S logical rows a slot needs for
+// its partials (the counters are B * H ints, zeroed once).
+extern "C" long long repro_decode_attention_partials(int B, int H, int KH,
+                                                     int S, int D) {
+  if (B <= 0 || KH <= 0 || H % KH != 0) return -1;
+  const int GB = heads_per_block(H / KH);
+  return (long long)B * KH * head_groups(H, KH) * chunks(S) * GB * (D + 2);
+}
+
 // k, v (B, S, KH, D) bf16
 extern "C" int repro_decode_attention_bf16(
     const void* q, const void* k, const void* v, const void* seq_lens,
-    void* out, int B, int H, int KH, int S, int D, int window, float softcap,
-    float scale, void* stream) {
-  return dispatch<__nv_bfloat16, false>(q, k, nullptr, v, nullptr, seq_lens,
-                                        per_slot(S), out, B, H, KH, D, window,
-                                        softcap, scale, stream);
+    void* out, void* part, void* count, int B, int H, int KH, int S, int D,
+    int window, float softcap, float scale, void* stream) {
+  return dispatch<__nv_bfloat16, false>(
+      q, k, nullptr, v, nullptr, seq_lens, per_slot(S), out, part, count, B,
+      H, KH, D, window, softcap, scale, stream);
 }
 
 // k, v (B, S, KH, D) int8; k_scale, v_scale (B, S, KH) f32
 extern "C" int repro_decode_attention_q8(
     const void* q, const void* k, const void* k_scale, const void* v,
-    const void* v_scale, const void* seq_lens, void* out, int B, int H,
-    int KH, int S, int D, int window, float softcap, float scale,
-    void* stream) {
+    const void* v_scale, const void* seq_lens, void* out, void* part,
+    void* count, int B, int H, int KH, int S, int D, int window,
+    float softcap, float scale, void* stream) {
   return dispatch<int8_t, false>(q, k, k_scale, v, v_scale, seq_lens,
-                                 per_slot(S), out, B, H, KH, D, window,
-                                 softcap, scale, stream);
+                                 per_slot(S), out, part, count, B, H, KH, D,
+                                 window, softcap, scale, stream);
 }
 
 // k, v (NB, bs, KH, D) bf16 pool; tables (B, nb) int32
 extern "C" int repro_decode_attention_bt_bf16(
     const void* q, const void* k, const void* v, const void* seq_lens,
-    const void* tables, void* out, int B, int H, int KH, int NB, int bs,
-    int nb, int D, int window, float softcap, float scale, void* stream) {
-  return dispatch<__nv_bfloat16, true>(q, k, nullptr, v, nullptr, seq_lens,
-                                       pooled(tables, NB, bs, nb), out, B, H,
-                                       KH, D, window, softcap, scale, stream);
+    const void* tables, void* out, void* part, void* count, int B, int H,
+    int KH, int NB, int bs, int nb, int D, int window, float softcap,
+    float scale, void* stream) {
+  return dispatch<__nv_bfloat16, true>(
+      q, k, nullptr, v, nullptr, seq_lens, pooled(tables, NB, bs, nb), out,
+      part, count, B, H, KH, D, window, softcap, scale, stream);
 }
 
 // k, v (NB, bs, KH, D) int8 pool; k_scale, v_scale (NB, bs, KH) f32;
@@ -298,9 +459,9 @@ extern "C" int repro_decode_attention_bt_bf16(
 extern "C" int repro_decode_attention_bt_q8(
     const void* q, const void* k, const void* k_scale, const void* v,
     const void* v_scale, const void* seq_lens, const void* tables, void* out,
-    int B, int H, int KH, int NB, int bs, int nb, int D, int window,
-    float softcap, float scale, void* stream) {
+    void* part, void* count, int B, int H, int KH, int NB, int bs, int nb,
+    int D, int window, float softcap, float scale, void* stream) {
   return dispatch<int8_t, true>(q, k, k_scale, v, v_scale, seq_lens,
-                                pooled(tables, NB, bs, nb), out, B, H, KH, D,
-                                window, softcap, scale, stream);
+                                pooled(tables, NB, bs, nb), out, part, count,
+                                B, H, KH, D, window, softcap, scale, stream);
 }

@@ -19,14 +19,18 @@ One kernel body, four entry points, each replacing a Pallas body of
 Bound on the H100: bytes.  A slot's valid K/V rows are read once each and
 serve G query heads, about 2*G flops per byte of bf16 (4*G of int8, whose
 rows are half the bytes plus a 4-byte scale a row and KV head; the pooled
-calls also read the tables).  The kernel runs one block per (slot, KV
-head), streams only logical rows ``< seq_lens[b]`` (and inside the window)
-through shared memory, and keeps the online softmax in f32 registers, so
-the cache needs no padding and rows past a slot's length are never read.
-A pooled launch finds each row through the slot's table and otherwise does
-what a per-slot launch does, so it computes the same bits as the per-slot
-launch on the gathered view (bf16 and int8 alike).  See the source for
-what a later PR would add.
+calls also read the tables).  The kernel splits each (slot, KV head) into
+chunks of a fixed number of logical rows, one block a chunk, reads only
+logical rows ``< seq_lens[b]`` (and inside the window) straight into
+registers, keeps the online softmax in f32 registers, and lets the last
+block of each (slot, KV head) combine the chunks' partials in chunk order
+within the same launch.  The partials and the counters that find the last
+block live in a workspace that `_workspace` allocates once per device and
+stream and reuses (the kernel leaves the counters at zero).  A pooled
+launch finds each row through the slot's table and otherwise does what a
+per-slot launch does, so it computes the same bits as the per-slot launch
+on the gathered view (bf16 and int8 alike).  See the source for the
+design and what is left.
 
 Each wrapper launches the kernel on CUDA tensors and raises on anything it
 does not take; ``ops`` sends CPU tensors to the plain versions in ``ref``.
@@ -35,6 +39,7 @@ the successful launches of each.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -42,7 +47,7 @@ import torch
 from repro_torch.kernels import build
 
 SUPPORTED_HEAD_DIMS = (16, 64, 128)
-MAX_GD = 1024          # (H / KH) * head_dim one block holds
+MAX_GD = 1024          # largest (H / KH) * head_dim the kernel takes
 
 launches = 0           # per-slot bf16 launches in this process
 launches_q = 0         # per-slot int8 launches
@@ -100,15 +105,45 @@ def _options(d, window, softcap, scale):
             d ** -0.5 if scale is None else float(scale))
 
 
-def _launch(name, q, tensors, dims, options):
-    """Call C entry point ``name`` as (tensors' pointers, out, dims,
-    options, stream) on q's device and stream; returns ``out``."""
+_workspaces = {}       # (device, stream) -> (partials f32, counters int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _partials(B, H, KH, S, d):
+    """Floats of the partials a launch of this shape needs."""
+    return build.library().repro_decode_attention_partials(B, H, KH, S, d)
+
+
+def _workspace(q, B, H, KH, S, d, stream):
+    """The kernel's workspace for this launch: partials (f32, as many as
+    ``repro_decode_attention_partials`` asks) and B * H counters (int32,
+    zero; the kernel leaves them zero).  Cached per device and stream,
+    grown when a launch needs more; launches on one stream run in order,
+    so they may share it."""
+    need = _partials(B, H, KH, S, d)
+    if need < 0:
+        raise ValueError(f"no decode workspace for B={B} H={H} KH={KH}")
+    key = (q.device, stream)
+    part, count = _workspaces.get(key, (None, None))
+    if part is None or part.numel() < need:
+        part = torch.empty(need, dtype=torch.float32, device=q.device)
+    if count is None or count.numel() < B * H:
+        count = torch.zeros(B * H, dtype=torch.int32, device=q.device)
+    _workspaces[key] = (part, count)
+    return part, count
+
+
+def _launch(name, q, tensors, dims, options, S):
+    """Call C entry point ``name`` as (tensors' pointers, out, workspace,
+    dims, options, stream) on q's device and stream; dims start (B, H, KH)
+    and S is the logical rows a slot can hold.  Returns ``out``."""
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        part, count = _workspace(q, *dims[:3], S, q.shape[2], stream)
         err = getattr(build.library(), name)(
-            *[t.data_ptr() for t in tensors], out.data_ptr(), *dims,
-            *options, stream)
+            *[t.data_ptr() for t in tensors], out.data_ptr(),
+            part.data_ptr(), count.data_ptr(), *dims, *options, stream)
     build.check(err, name)
     return out
 
@@ -125,7 +160,7 @@ def paged_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, d = _check(q, k, v, seq_lens, torch.bfloat16)
     S, KH = k.shape[1], k.shape[2]
     out = _launch("repro_decode_attention_bf16", q, (q, k, v, seq_lens),
-                  (B, H, KH, S, d), _options(d, window, softcap, scale))
+                  (B, H, KH, S, d), _options(d, window, softcap, scale), S)
     launches += 1
     return out
 
@@ -142,7 +177,7 @@ def paged_decode_attention_q8(q, k, k_scale, v, v_scale, seq_lens, *,
     S, KH = k.shape[1], k.shape[2]
     out = _launch("repro_decode_attention_q8", q,
                   (q, k, k_scale, v, v_scale, seq_lens), (B, H, KH, S, d),
-                  _options(d, window, softcap, scale))
+                  _options(d, window, softcap, scale), S)
     launches_q += 1
     return out
 
@@ -162,7 +197,7 @@ def paged_decode_attention_bt(q, k, v, seq_lens, tables, *,
     out = _launch("repro_decode_attention_bt_bf16", q,
                   (q, k, v, seq_lens, tables),
                   (B, H, KH, NB, bs, tables.shape[1], d),
-                  _options(d, window, softcap, scale))
+                  _options(d, window, softcap, scale), tables.shape[1] * bs)
     launches_bt += 1
     return out
 
@@ -181,6 +216,6 @@ def paged_decode_attention_bt_q8(q, k, k_scale, v, v_scale, seq_lens,
     out = _launch("repro_decode_attention_bt_q8", q,
                   (q, k, k_scale, v, v_scale, seq_lens, tables),
                   (B, H, KH, NB, bs, tables.shape[1], d),
-                  _options(d, window, softcap, scale))
+                  _options(d, window, softcap, scale), tables.shape[1] * bs)
     launches_bt_q += 1
     return out

@@ -118,6 +118,11 @@ FLASH_CASES = [                             # (B, H, KH, T, S, d), options
     ((1, 8, 8, 1, 1, 128), dict()),
     ((2, 16, 4, 77, 77, 128), dict(window=20, scale=0.3)),
     ((8, 16, 16, 128, 128, 128), dict()),
+    # several 64-key tiles: a window that starts inside a tile, GQA, softcap
+    ((2, 8, 2, 256, 256, 128), dict(window=100, softcap=30.0)),
+    ((1, 16, 4, 512, 512, 64), dict(window=200, softcap=10.0)),
+    ((1, 8, 1, 512, 512, 128), dict(window=70)),
+    ((2, 4, 2, 200, 333, 16), dict(causal=False, window=50)),
 ]
 
 
@@ -682,12 +687,56 @@ def test_pooled_and_int8_decode_kernels_match_plain(card, shape, kw):
     assert torch.equal(got_q, flat_q)
 
 
-# The per-slot bf16 decode kernel's bits from before its body was shared
-# with the int8 and pooled variants: sha256 of `_row1_bits`' outputs, from
-# that kernel built by nvcc 12.9 (V12.9.86) for sm_90a and run on an H100.
-# The shared body's per-slot bf16 instantiation computes the same bits.
-ROW1_SHA256 = ("aa91d94bc2dd9fb176d96c8446f7bd57"
-               "72b3a46aefb50722023a021017868ab9")
+# The decode kernels split a slot's rows into chunks of 128 logical rows
+# (CHUNK in csrc/decode_attention.cu): lengths just below, at and above one
+# chunk and several chunks, windows that start inside a chunk, a window of
+# one row, GQA with G = 8 and 16 at d = 64 and 128 (G = 16: two head groups
+# a KV head), G = 64 at d = 16 (eight head groups).
+CHUNK_CASES = [                 # (B, H, KH, d, bs, nb, lens), options
+    ((4, 16, 16, 128, 16, 24, [127, 128, 129, 384]), dict()),
+    ((4, 16, 2, 128, 16, 40, [255, 256, 257, 640]), dict(window=200)),
+    ((3, 8, 1, 64, 32, 12, [384, 130, 1]), dict(window=129, softcap=10.0)),
+    ((2, 32, 2, 64, 8, 40, [320, 200]), dict(window=64)),
+    ((2, 64, 1, 16, 16, 20, [300, 129]), dict()),
+    ((2, 4, 4, 128, 16, 32, [512, 300]), dict(window=1)),
+]
+
+
+@pytest.mark.parametrize("shape,kw", CHUNK_CASES, ids=str)
+def test_decode_kernels_at_chunk_edges(card, shape, kw):
+    """Rows 1, 3, 1q and 3q against their plain versions at the chunk
+    edges; rows 3 and 3q bitwise rows 1 and 1q on the gathered view; two
+    launches on the same inputs bitwise equal."""
+    B, H, KH, d, bs, nb, lens = shape
+    rng = np.random.default_rng(d + H + nb)
+    q, k, v, tables = _pool_case(rng, card, B, H, KH, d, bs, nb)
+    lens = torch.tensor(lens, dtype=torch.int32, device=card)
+    view = [REF.pool_rows(x, tables) for x in (k, v)]
+    got = DA.paged_decode_attention(q, *view, lens, **kw)
+    _close(got, REF.paged_decode_attention_ref(q, *view, lens, **kw))
+    assert torch.equal(got, DA.paged_decode_attention(q, *view, lens, **kw))
+    got_bt = DA.paged_decode_attention_bt(q, k, v, lens, tables, **kw)
+    assert torch.equal(got_bt, got)
+    (kq, ks), (vq, vs) = QU.quantize_kv(k), QU.quantize_kv(v)
+    view_q = [REF.pool_rows(x, tables) for x in (kq, ks, vq, vs)]
+    got_q = DA.paged_decode_attention_q8(q, *view_q, lens, **kw)
+    _close(got_q, REF.paged_decode_attention_ref(
+        q, view_q[0], view_q[2], lens, k_scale=view_q[1], v_scale=view_q[3],
+        **kw))
+    assert torch.equal(got_q, DA.paged_decode_attention_q8(q, *view_q, lens,
+                                                           **kw))
+    assert torch.equal(got_q, DA.paged_decode_attention_bt_q8(
+        q, kq, ks, vq, vs, lens, tables, **kw))
+
+
+# The per-slot bf16 decode kernel's bits: sha256 of `_row1_bits`' outputs,
+# from the split-KV kernel (chunks of 128 logical rows, per-lane running
+# softmax states, chunks combined in order) built by nvcc 12.9 for sm_90a
+# and run on an H100.  A kernel change that moves these bits must update
+# the pin on purpose; the pooled and int8 bodies are held to it through
+# the bitwise gathered-view tests above.
+ROW1_SHA256 = ("c5ce02b66a73e6d489f3e9a5c2a38fd6"
+               "b461077ac009c50115162143ca6b9ef0")
 
 
 def _row1_bits(dev):
