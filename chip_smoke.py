@@ -86,10 +86,12 @@ each of which fails the run if it fails:
      plain version run with ``torch.use_deterministic_algorithms`` (whose
      ``index_add_`` sums duplicates in index order) and, on the small
      cases, the plain version on the CPU; two launches bitwise equal.  The
-     whole call, the ordering alone, the kernel alone and the zero fill
+     whole call, the ordering alone, the kernel half alone (and its run
+     and hot-run launches apart), the longest run alone and the zero fill
      alone are timed beside the plain version (default and deterministic),
      the byte bound and ``index_add_`` (one call a row space; a yardstick
-     only).  At B = 4096, before the gradient is freed: each table's ids
+     only); the batch's statistics (valid descriptors, distinct rows,
+     longest run) come from the descriptors, not the key encoding.  At B = 4096, before the gradient is freed: each table's ids
      deduplicated (``dedup_ids``) and ``ops.embedding_scatter`` of its
      gradient rows (150 launches, counted) bitwise the table's slice of
      the gradient; timed whole, fill and kernel apart, beside the plain
@@ -158,7 +160,6 @@ PER_TABLE_TRAIN_BATCH = DLRM_CHIP_BATCH
 # Adam, card vs CPU on the same gradients: the same f32 operations, norms
 # summed in other orders: 1e-6 of each element and of the leaf's largest
 ADAM_RTOL = 1e-6
-KEY_NONE = 2 ** 63 - 1          # fused scatter's key of an invalid descriptor
 
 
 def check(cond, msg):
@@ -1522,6 +1523,26 @@ def dedup_scatter_phase(torch, coll, plan, feats, grads, ES, DD, REF, ops):
                 dedup_ratio=1.0 - n_uniq / max(n_ids, 1), bytes=nbytes)
 
 
+def descriptor_rows(torch, rows, slots, col_slot, shapes):
+    """(B, S) int64: each descriptor's row, numbered across the row spaces
+    in order, -1 where it adds nothing (id < 0, id >= R_g, a column no
+    slot spans); and a function from such a row to its row space's dim."""
+    cs = col_slot.long()
+    g = torch.where(cs >= 0, slots[:, 0].long()[cs.clamp_min(0)], -1)
+    nrows = torch.tensor([r for r, _ in shapes], device=rows.device)
+    dims = torch.tensor([d for _, d in shapes], device=rows.device)
+    first = torch.cumsum(nrows, 0) - nrows
+    gg = g.clamp_min(0)
+    r = rows.long()
+    valid = (g >= 0)[None, :] & (r >= 0) & (r < nrows[gg][None, :])
+    gid = torch.where(valid, first[gg][None, :] + r, -1)
+
+    def row_dim(x):
+        return dims[torch.searchsorted(first, x, right=True) - 1]
+
+    return gid, row_dim
+
+
 def scatter_kernel_phase(torch, cfg, coll, Dataset, ShapeConfig, FS, REF, B,
                          dedup=None, dev="cuda"):
     """The fused scatter at the training tables' shapes and a batch of B
@@ -1569,6 +1590,7 @@ def scatter_kernel_phase(torch, cfg, coll, Dataset, ShapeConfig, FS, REF, B,
         order_ms = cuda_ms(torch, lambda i: FS.order_descriptors(
             rows, slots, col_slot, shapes), 1, iters=10)
         keys, order = FS.order_descriptors(rows, slots, col_slot, shapes)
+        key_bits = keys.element_size() * 8
         grads = [torch.zeros(s, device=dev) for s in shapes]
         kernel_ms = cuda_ms(torch, lambda i: FS.reduce_runs(
             grads, gout, col_slot, keys, order), 1, iters=10)
@@ -1577,25 +1599,33 @@ def scatter_kernel_phase(torch, cfg, coll, Dataset, ShapeConfig, FS, REF, B,
         plain_ms = cuda_ms(torch, plain, 1, iters=3, warmup=1)
         with deterministic(torch):
             plain_det_ms = cuda_ms(torch, plain, 1, iters=3, warmup=1)
-        # what this batch needs: valid descriptors, distinct rows, runs
-        n_valid = int((keys != KEY_NONE).sum())
-        runs, counts = torch.unique_consecutive(keys[:n_valid],
-                                                return_counts=True)
-        dims = torch.tensor([d for _, d in shapes], device=dev)
-        valid_elems = int(dims[keys[:n_valid] >> 32].sum())
-        distinct_elems = int(dims[runs >> 32].sum())
+        # the kernel half's two launches apart
+        short_ms = cuda_ms(torch, lambda i: FS.reduce_short_runs(
+            grads, gout, col_slot, keys, order), 1, iters=10)
+        hot = FS.reduce_short_runs(grads, gout, col_slot, keys, order)
+        hot_ms = cuda_ms(torch, lambda i: FS.reduce_hot_runs(
+            grads, gout, col_slot, keys, order, hot), 1, iters=10)
+        items = FS.hot_items(hot)
+        hot_runs, hot_items = items[:, 0].unique().numel(), items.shape[0]
+        del hot, items
+        del keys, order
+        # what this batch needs: valid descriptors, distinct rows, runs;
+        # from the descriptors, whatever the wrapper's key encoding
+        gid, row_dim = descriptor_rows(torch, rows, slots, col_slot, shapes)
+        valid = gid[gid >= 0]
+        n_valid = valid.numel()
+        runs, counts = torch.unique(valid, return_counts=True)
+        valid_elems = int(row_dim(valid).sum())
+        distinct_elems = int(row_dim(runs).sum())
         n_distinct = runs.numel()
         longest = int(counts.max())
-        start = int(counts[:int(counts.argmax())].sum())
         # the longest run alone: every other descriptor invalid
-        hot = torch.full_like(rows, -1).reshape(-1)
-        pos = order[start:start + longest]
-        hot[pos] = rows.reshape(-1)[pos]
-        hot_in = FS.order_descriptors(hot.reshape(rows.shape), slots,
-                                      col_slot, shapes)
+        hot_rows = torch.where(gid == runs[counts.argmax()], rows, -1)
+        del valid, runs, counts, gid
+        hot_in = FS.order_descriptors(hot_rows.int(), slots, col_slot, shapes)
         hot_run_ms = cuda_ms(torch, lambda i: FS.reduce_runs(
             grads, gout, col_slot, *hot_in), 1, iters=5)
-        del hot, hot_in, grads, keys, order, runs, counts
+        del hot_rows, hot_in, grads
         # index_add_, one call a row space, on the gathered slot gradients
         # (gathered beforehand, outside the timing)
         S = rows.shape[1]
@@ -1628,10 +1658,14 @@ def scatter_kernel_phase(torch, cfg, coll, Dataset, ShapeConfig, FS, REF, B,
                 bound_by=bound_by, library_ms=library_ms, batch=B,
                 plain_deterministic_ms=plain_det_ms,
                 order_ms=order_ms, kernel_ms=kernel_ms, fill_ms=fill_ms,
-                hot_run_ms=hot_run_ms, longest_run=longest,
+                key_bits=key_bits, short_ms=short_ms, hot_ms=hot_ms,
+                hot_runs=hot_runs, hot_items=hot_items,
+                hot_run_min=FS.HOT_RUN, hot_run_ms=hot_run_ms,
+                longest_run=longest,
                 valid_descriptors=n_valid, distinct_rows=n_distinct,
-                touched_bound_ms=touched_ms, bytes=nbytes,
-                gradient_gb=grad_bytes / 1e9, dataset_batch_s=data_s), dd
+                touched_bound_ms=touched_ms, gout_read_gb=valid_elems * 4 / 1e9,
+                bytes=nbytes, gradient_gb=grad_bytes / 1e9,
+                dataset_batch_s=data_s), dd
 
 
 def dlrm_train_reference_phase(torch, registry, api, ShapeConfig,
@@ -1743,16 +1777,19 @@ def train_phase(torch, cfg, ShapeConfig, RunConfig, ParallelConfig,
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
-    FL.launches = FS.launches = 0
+    FL.launches = FS.launches = FS.launches_hot = FS.launches_keys = 0
     t_start = time.perf_counter()
     state = trainer.train(n, state=state, log_every=1, on_step=on_step)
-    launches = {"fused_lookup": FL.launches, "fused_scatter": FS.launches}
+    launches = {"fused_lookup": FL.launches, "fused_scatter": FS.launches,
+                "fused_scatter_hot": FS.launches_hot,
+                "fused_scatter_keys": FS.launches_keys}
     peak = torch.cuda.max_memory_allocated()
     step_s = [b - a for a, b in zip([t_start] + marks[:-1], marks)]
     losses = [m["loss"] for m in trainer.metrics_log]
-    check(launches["fused_lookup"] == n and launches["fused_scatter"] == n,
+    check(all(v == n for v in launches.values()),
           f"training: {launches} launches for {n} steps (one fused lookup "
-          f"and one fused scatter a step)")
+          f"and one fused scatter, with its key and hot-run kernels, a "
+          f"step)")
     check(len(losses) == n and all(math.isfinite(x) for x in losses),
           f"training: losses {losses}")
     data_s = list(calls)            # the profiled steps below draw more
@@ -1846,16 +1883,21 @@ def per_table_train_phase(torch, cfg, ShapeConfig, RunConfig,
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
-    FL.launches = EG.launches = FS.launches = 0
+    FL.launches = EG.launches = FS.launches = FS.launches_hot = 0
+    FS.launches_keys = 0
     t0 = time.perf_counter()
     state = trainer.train(steps, state=state, log_every=1, on_step=on_step)
     launches = {"fused_lookup": FL.launches, "embedding_gather": EG.launches,
-                "fused_scatter": FS.launches}
+                "fused_scatter": FS.launches,
+                "fused_scatter_hot": FS.launches_hot,
+                "fused_scatter_keys": FS.launches_keys}
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss"] for m in trainer.metrics_log]
     want = {"fused_lookup": 0,
             "embedding_gather": steps * len(cfg.dlrm.tables),
-            "fused_scatter": steps * n_spaces}
+            "fused_scatter": steps * n_spaces,
+            "fused_scatter_hot": steps * n_spaces,
+            "fused_scatter_keys": steps * n_spaces}
     check(launches == want, f"per-table training: launches {launches}, "
                             f"want {want}")
     check(len(losses) == steps and all(math.isfinite(x) for x in losses),
@@ -2017,18 +2059,24 @@ def main(argv=None):
     gather["launches"] = dlrm_launches["embedding_gather"]
     scat = scatter[TRAIN_BATCH]
     scat["launches"] = train_launches["fused_scatter"]
+    # the fused scatter's key and hot-run kernels, one each a run kernel
+    scat["launches_hot"] = train_launches["fused_scatter_hot"]
+    scat["launches_keys"] = train_launches["fused_scatter_keys"]
     lookup = dict(dlrm_kern[DLRM_BATCH]["embedding_lookup"])
     lookup["launches"] = sum(k["embedding_lookup"]["launches"]
                              for k in dlrm_kern.values())
     qlookup = dict(int8[DLRM_BATCH], launches=int8["launches"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    more = ("launches_hot", "launches_keys")
     kernels = {"kernels": [{k: kern[k] for k in keys}
+                           | {k: kern[k] for k in more if k in kern}
                            for kern in (decode, pooled["q8"], pooled["bt"],
                                         pooled["bt_q8"], prefill, fused,
                                         gather, scat, lookup, dedup,
                                         qlookup)]}
-    check(all(k["launches"] > 0 for k in kernels["kernels"]),
+    check(all(k[n] > 0 for k in kernels["kernels"] for n in
+              ("launches",) + more if n in k),
           f"a kernel was not launched on its path: {kernels}")
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -3,9 +3,10 @@
 Every ``csrc/*.cu`` file compiles to an object (all ``nvcc`` processes run
 at once), and the objects link into ONE shared library with a plain C
 interface.  The library lands in ``kernels/_build/`` (listed in
-``.gitignore``) under a name derived from the sources and flags, so an
-edited source never loads a stale build.  Nothing is built at import time:
-the first kernel launch calls `library()`.
+``.gitignore``) under a name derived from the sources, their ``*.cuh``
+headers and the flags, so an edited source never loads a stale build.
+Nothing is built at import time: the first kernel launch calls
+`library()`.
 
 ``torch.utils.cpp_extension.load`` is not used: including PyTorch's
 headers makes a build take minutes, where ``nvcc`` on a plain C interface
@@ -58,9 +59,12 @@ SIGNATURES = {
     "repro_embedding_lookup_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_embedding_scatter_f32": [_P, _P, _P, _L, _I, _I, _P],
     "repro_embedding_gather_f32": [_P, _P, _P, _L, _I, _I, _P],
-    "repro_fused_scatter_keys": [_PI, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_fused_scatter_keys":
+        [_PI, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_fused_scatter_f32":
-        [_PP, _PI, _PI, _I, _P, _P, _L, _P, _P, _I, _I, _I, _P],
+        [_PP, _PI, _PI, _I, _P, _P, _L, _P, _P, _I, _I, _I, _I, _P, _P],
+    "repro_fused_scatter_hot_f32":
+        [_PP, _PI, _PI, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 # entry points that return something other than a cudaError_t
 RESTYPES = {"repro_decode_attention_partials": _L}
@@ -89,7 +93,7 @@ def _sources():
 
 def _digest(flags) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):     # sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -18,32 +18,36 @@
 // the last run to be written wins.
 //
 // Bound on the H100: bytes.  The zero fill of the (V, D) table is most of
-// them; the kernel reads each valid gradient row once and writes each
-// named row once.  Design (the run walk of fused_scatter.cu, with the ids
-// as the keys, already in order):
-//   * each warp takes 32 positions, finds the runs that start there (a
-//     ballot of id changes), and for each run loads its positions' ids 32
-//     at a time; the run is the prefix of equal ids;
-//   * lane l owns float4 chunks l, l + 32, ... of the row; the rows of
-//     UNROLL positions are in flight before they are added, one f32 add
-//     at a time in index order: the same bits as index_add_ in index
-//     order, and for unique ids exactly 0 + g, as the reference;
+// them (the wrapper's torch.zeros, at ~92% of its bytes); the kernel reads
+// each valid gradient row once and writes each named row once, and is
+// bound by how many of those reads are in flight: dedup_ids' runs are one
+// row long, so a design that walks one run at a time has one row in
+// flight a warp.  Design (scatter_runs.cuh):
+//   * each warp takes 32 positions and reads each id once (one chunk
+//     ahead), with its neighbours by shuffles; one ballot gives every run
+//     of the chunk;
+//   * the runs that end in the chunk are summed by lane groups of
+//     nextpow2(D / 4) lanes (at least 4, at most 32: D = 32 -> 4 runs at
+//     once, D = 64 -> 2, D >= 128 -> the whole warp), every group issuing
+//     up to 16 / CPL rows' loads before it adds any: 8 KB in flight a warp
+//     at every D;
+//   * the run that goes on past the chunk (adjacent duplicates) is walked
+//     in order by the warp that owns its head, 16 / CPL rows in flight;
+//   * split lanes, never runs: the bits depend on it.  Each lane's sum is
+//     one f32 add at a time in index order: the same bits as index_add_
+//     in index order, and for unique ids exactly 0 + g, as the reference;
 //   * offsets are 64-bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scatter_runs.cuh"
+
 namespace {
 
-constexpr int WARPS = 8;        // warps per block
-constexpr int NT = WARPS * 32;
-constexpr int UNROLL = 4;       // rows whose loads are in flight per warp
+using namespace scatter_runs;
 
-__device__ __forceinline__ void add4(float4& acc, const float4& v) {
-  acc.x += v.x;
-  acc.y += v.y;
-  acc.z += v.z;
-  acc.w += v.w;
-}
+constexpr int WARPS = 4;        // warps per block
+constexpr int NT = WARPS * 32;
 
 template <int CPL>              // float4 chunks per lane: D <= 128 * CPL
 __global__ void __launch_bounds__(NT) scatter_runs_kernel(
@@ -52,55 +56,36 @@ __global__ void __launch_bounds__(NT) scatter_runs_kernel(
   const int lane = threadIdx.x % 32;
   const long long nchunks = (N + 31) / 32;
   const long long stride = (long long)gridDim.x * WARPS;
-  for (long long c = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
-       c < nchunks; c += stride) {
+  // a chunk's ids (lane 0 also the id before it, lane 31 the id after
+  // it), loaded one chunk ahead
+  int nid = -1, nprev = -1, nnext = -1;
+  auto fetch = [&](long long c) {
     const long long i = c * 32 + lane;
-    const int id = i < N ? __ldg(ids + i) : -1;
-    const int prev = (i > 0 && i < N) ? __ldg(ids + i - 1) : -1;
-    unsigned heads = __ballot_sync(
-        0xffffffffu, id >= 0 && id < V && (i == 0 || prev != id));
-    while (heads) {                         // the same for the whole warp
-      const int h = __ffs(heads) - 1;
-      heads &= heads - 1;
-      const int key = __shfl_sync(0xffffffffu, id, h);
-      float4 acc[CPL];
-#pragma unroll
-      for (int q = 0; q < CPL; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (long long p = c * 32 + h;;) {
-        // the run is the prefix of equal ids among the next 32 positions
-        const long long pj = p + lane;
-        const bool same = pj < N && __ldg(ids + pj) == key;
-        const unsigned other = ~__ballot_sync(0xffffffffu, same);
-        const int n = other ? __ffs(other) - 1 : 32;
-        for (int j = 0; j < n; j += UNROLL) {
-          float4 v[UNROLL][CPL];
-#pragma unroll
-          for (int u = 0; u < UNROLL; ++u) {
-            const size_t row = (size_t)(p + j + u) * nch;
-#pragma unroll
-            for (int q = 0; q < CPL; ++q) {
-              const int ch = lane + 32 * q;
-              v[u][q] = (j + u < n && ch < nch)
-                            ? __ldg(grads + row + ch)
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < UNROLL; ++u) {
-            if (j + u >= n) break;          // the same for the whole warp
-#pragma unroll
-            for (int q = 0; q < CPL; ++q) add4(acc[q], v[u][q]);
-          }
-        }
-        p += n;
-        if (n < 32) break;
-      }
-      float4* o = out + (size_t)key * nch;
-#pragma unroll
-      for (int q = 0; q < CPL; ++q) {
-        const int ch = lane + 32 * q;
-        if (ch < nch) o[ch] = acc[q];
-      }
+    nid = i < N ? __ldg(ids + i) : -1;
+    nprev = lane == 0 && i > 0 && i < N ? __ldg(ids + i - 1) : -1;
+    nnext = lane == 31 && i + 1 < N ? __ldg(ids + i + 1) : -1;
+  };
+  long long c = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+  if (c < nchunks) fetch(c);
+  for (; c < nchunks; c += stride) {
+    const long long i = c * 32 + lane;
+    const int id = nid;
+    int prev = __shfl_up_sync(FULL, id, 1);
+    if (lane == 0) prev = nprev;
+    int next = __shfl_down_sync(FULL, id, 1);
+    if (lane == 31) next = nnext;
+    if (c + stride < nchunks) fetch(c + stride);
+    const bool valid = id >= 0 && id < V;
+    const Chunk ck = chunk_runs(valid, valid && (i == 0 || prev != id),
+                                valid && next == id);
+    sum_short_runs<CPL>(ck, grads, i * nch, (ck.shorts >> lane) & 1 ? nch : 0,
+                        out + (size_t)(valid ? id : 0) * nch, lane);
+    if (ck.tail >= 0) {                     // the same for the whole warp
+      const int key = __shfl_sync(FULL, id, ck.tail);
+      walk_run<CPL>(
+          c * 32 + ck.tail, N, grads, nch, out + (size_t)key * nch, lane,
+          [&](long long p) { return __ldg(ids + p) == key; },
+          [&](long long p) { return p * nch; });
     }
   }
 }
@@ -116,7 +101,7 @@ extern "C" int repro_embedding_scatter_f32(const void* grads, const void* ids,
   if (N == 0) return (int)cudaSuccess;
   const long long nchunks = (N + 31) / 32;
   long long blocks = (nchunks + WARPS - 1) / WARPS;
-  if (blocks > 132 * 16) blocks = 132 * 16;   // grid-stride past this
+  if (blocks > 132 * 32) blocks = 132 * 32;   // grid-stride past this
   const float4* g = static_cast<const float4*>(grads);
   const int* i = static_cast<const int*>(ids);
   float4* o = static_cast<float4*>(out);

@@ -11,12 +11,14 @@ before the backward).
 Contract: the ids may be any stream in which equal ids are ADJACENT —
 ``dedup_ids``' unique sorted ids with a -1 tail, or any sorted stream.
 A -1 anywhere adds nothing and an id >= V is dropped.  A run of equal ids
-is summed in index order by the warp that owns its head, then its row is
-written once: for unique ids the result is bitwise the reference's
-(0 + each row); for adjacent duplicates it is bitwise ``index_add_`` in
-index order (``ref.embedding_scatter_ref`` on the CPU, or on the card
-under ``torch.use_deterministic_algorithms``).  Non-adjacent duplicates
-are NOT supported: each run writes its row, and the last one written wins.
+is summed in index order by the warp that owns its head (one lane group
+of it, several runs at once a warp, when the run ends within the warp's
+32 positions), then its row is written once: for unique ids the result is
+bitwise the reference's (0 + each row); for adjacent duplicates it is
+bitwise ``index_add_`` in index order (``ref.embedding_scatter_ref`` on
+the CPU, or on the card under ``torch.use_deterministic_algorithms``).
+Non-adjacent duplicates are NOT supported: each run writes its row, and
+the last one written wins.
 
 Bound on the H100: bytes, most of them the zero fill of the (V, D) table,
 which is part of the operation, as in the reference.  `embedding_scatter`

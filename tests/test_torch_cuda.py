@@ -24,7 +24,8 @@ exactly.  The fused scatter sums each row's descriptors in (b, s) order,
 one f32 add at a time, as the plain version's ``index_add_`` does on the
 CPU, and as it does on the card under ``torch.use_deterministic_algorithms``
 (a stable sort of the indices, then each row's duplicates in order): the
-kernel is bitwise equal to both; against the plain version on the card
+kernel is bitwise equal to both, hot runs (split by lanes over blocks)
+and both key widths included; against the plain version on the card
 by default (atomic adds, in any order) it agrees to SCATTER_TOL = 1e-5 of
 each row space's largest |gradient|.  The single-table lookup and the
 int8 fused lookup add in column order, as the fused lookup: EMB_ATOL,
@@ -393,6 +394,101 @@ def test_fused_scatter_sums_a_hot_row_in_order_and_deterministically(card):
     assert a[0][3].abs().max().item() > 0
 
 
+def _ordered(fn):
+    """``fn()`` under ``torch.use_deterministic_algorithms``."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _hot_case(rng, dev, shapes, counts, B):
+    """One slot a row space; row space g's descriptors are the rows of
+    ``counts`` ({(g, row): n}) n times each, shuffled over a (B, v_g) span
+    padded with -1.  Keys sort by (g, row), so a run starts at the number
+    of descriptors with a smaller (g, row)."""
+    slots, cols, c0 = [], [], 0
+    for g in range(len(shapes)):
+        ids = np.concatenate([np.full(n, r) for (h, r), n in counts.items()
+                              if h == g])
+        v = -(-ids.size // B)
+        span = np.full(B * v, -1)
+        span[rng.permutation(B * v)[:ids.size]] = rng.permutation(ids)
+        cols.append(span.reshape(B, v))
+        slots.append((g, c0, c0 + v, 0))
+        c0 += v
+    rows = torch.from_numpy(np.concatenate(cols, 1).astype(np.int32)).to(dev)
+    slots = torch.tensor(slots, dtype=torch.int32, device=dev)
+    gout = torch.from_numpy(rng.standard_normal(
+        (B, len(shapes), max(d for _, d in shapes))).astype(np.float32)).to(dev)
+    return gout, rows, slots, REF.column_slots(slots, c0).int()
+
+
+def _hot_counts(T):
+    """Runs of T - 1, T and T + 1; three hot runs in row space 0 (one on
+    its last row, one starting at sorted position 31, the last position of
+    the first 32-position chunk) and one in each of row spaces 1 and 2;
+    short runs around them."""
+    counts = {(0, 0): 31, (0, 1): T + 3, (0, 10): T, (0, 99): T + 1,
+              (1, 3): T - 1, (1, 4): T, (1, 7): 40, (2, 0): 2 * T + 7}
+    for g, lo, hi in ((0, 2, 99), (1, 8, 40), (2, 1, 30)):
+        for r in range(lo, hi):
+            counts.setdefault((g, r), 1 + r % 37)
+    return counts
+
+
+def test_fused_scatter_hot_runs_are_bitwise_and_listed(card):
+    """Runs at and around the hot threshold, hot runs in one and in
+    several row spaces, on a row space's last row and from the last
+    position of a chunk, both key widths: bitwise the CPU's sequential sum
+    and the deterministic plain version; two launches equal; every run of
+    at least HOT_RUN descriptors, and only those, on the hot list, one
+    item a 32-lane slice."""
+    rng = np.random.default_rng(19)
+    T = FS.HOT_RUN
+    shapes = [(100, 32), (41, 256), (30, 100)]
+    counts = _hot_counts(T)
+    gout, rows, slots, cs = _hot_case(rng, card, shapes, counts, 512)
+    want = REF.fused_scatter_ref(gout.cpu(), rows.cpu(), slots.cpu(), shapes)
+    ordered = _ordered(lambda: REF.fused_scatter_ref(gout, rows, slots,
+                                                     shapes, cs))
+    got = {}
+    for wide in (False, True):
+        keys, order = FS._order(rows, slots, cs, shapes, wide=wide)
+        assert keys.dtype == (torch.int64 if wide else torch.int32)
+        plain = torch.sort(FS.descriptor_keys(rows, slots, cs, shapes, wide),
+                           stable=True)
+        assert torch.equal(keys, plain[0]) and torch.equal(order, plain[1])
+        assert int(keys[31]) == int(keys[31 + T + 2]) != int(keys[30])
+        grads = [torch.zeros(s, device=card) for s in shapes]
+        hot = FS.reduce_short_runs(grads, gout, cs, keys, order)
+        items = FS.hot_items(hot).tolist()
+        listed = sorted({(a, b) for a, b, _ in items})
+        g, r = FS.split_keys(keys[[a for a, _ in listed]], shapes)
+        assert sorted(zip(g.tolist(), r.tolist())) == sorted(
+            k for k, n in counts.items() if n >= T)
+        for (a, b), gg, rr in zip(listed, g.tolist(), r.tolist()):
+            assert b - a == counts[(gg, rr)]     # one item a 32-lane slice
+            assert sorted(x for s, e, x in items if (s, e) == (a, b)) == \
+                list(range(0, shapes[gg][1], 32))
+        FS.reduce_hot_runs(grads, gout, cs, keys, order, hot)
+        again = [torch.zeros(s, device=card) for s in shapes]
+        FS.reduce_runs(again, gout, cs, keys, order)
+        torch.cuda.synchronize()
+        for x, y, w, o in zip(grads, again, want, ordered):
+            assert torch.equal(x, y) and torch.equal(x.cpu(), w)
+            assert torch.equal(x, o)
+        got[wide] = grads
+    assert all(torch.equal(a, b) for a, b in zip(got[False], got[True]))
+    n0 = (FS.launches, FS.launches_hot, FS.launches_keys)
+    whole = FS.fused_scatter(gout, rows, slots, cs, shapes)
+    assert (FS.launches, FS.launches_hot, FS.launches_keys) == tuple(
+        n + 1 for n in n0)
+    assert all(torch.equal(a, b) for a, b in zip(whole, got[False]))
+
+
 def test_fused_scatter_wrapper_rejects_what_the_kernel_does_not_take(card):
     rng = np.random.default_rng(8)
     gout, rows, slots, cs, shapes = _scatter_inputs(
@@ -547,6 +643,46 @@ def test_embedding_scatter_kernel_is_bitwise_plain(card, dup, V, D, N):
     finally:
         torch.use_deterministic_algorithms(was)
     assert torch.equal(got, want)
+
+
+def _es_bitwise(card, ids, D, V, seed):
+    """The scatter of deduplicated ids on ``ids`` (int32 numpy): two
+    launches equal, bitwise the CPU's sequential sum and the plain version
+    under deterministic algorithms."""
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(ids.astype(np.int32)).to(card)
+    grads = torch.from_numpy(rng.standard_normal((ids.numel(), D)).astype(
+        np.float32)).to(card)
+    got = ES.embedding_scatter(grads, ids, V)
+    again = ES.embedding_scatter(grads, ids, V)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), REF.embedding_scatter_ref(grads.cpu(),
+                                                            ids.cpu(), V))
+    assert torch.equal(got, _ordered(
+        lambda: REF.embedding_scatter_ref(grads, ids, V)))
+    return got
+
+
+@pytest.mark.parametrize("D", [4, 32, 64, 96, 192, 512])
+def test_embedding_scatter_unique_ids_at_every_lane_group_width(card, D):
+    """Unique sorted ids (dedup_ids' output: runs of one row, several a
+    warp in lane groups of 4 to 32 lanes) with a -1 tail."""
+    rng = np.random.default_rng(D)
+    V = 3000
+    live = np.sort(rng.permutation(V)[:1700])
+    got = _es_bitwise(card, np.concatenate([live, np.full(300, -1)]), D, V, D)
+    assert got[live].abs().sum(dim=1).gt(0).all()
+
+
+def test_embedding_scatter_runs_across_chunks(card):
+    """A sorted stream of runs of 1-70 equal ids, most of them straddling
+    32-position chunks, then one run of 5,000 equal ids."""
+    rng = np.random.default_rng(5)
+    uniq = np.sort(rng.permutation(900)[:120])
+    runs = np.repeat(uniq, rng.integers(1, 71, size=uniq.size))
+    _es_bitwise(card, runs, 64, 900, 6)
+    _es_bitwise(card, np.concatenate([np.full(5000, 7), [8, -1]]), 32, 10, 7)
 
 
 def _q_inputs(rng, dev, dims, spec, B):

@@ -10,6 +10,9 @@ per-table training route, against the JAX package on the CPU:
   * ``ref.embedding_scatter_ref`` bitwise against the Pallas
     ``scatter_kernel_call`` for unique ids, and its adjacent-duplicate
     contract against ``.at[].add``;
+  * the fused scatter's sort keys (``kernels/fused_scatter.py``): int32
+    for every dlrm0 cut, int64 from 2^31 - 1 rows, and the plain key
+    kernel and key decoding against numpy;
   * ``ref.fused_lookup_q_ref`` against the reference's
     ``ops.fused_lookup_q`` over ``quantize(fused_table)``, at every dlrm0
     width on reduced dlrm0's descriptors;
@@ -52,6 +55,7 @@ from repro.models import quant as JQ
 from repro.optim import adam as JOPT
 from repro.parallel.context import LOCAL
 from repro_torch import interop
+from repro_torch.configs import dlrm0
 from repro_torch.configs import registry as TREG
 from repro_torch.configs.base import EmbeddingTableConfig as TTable
 from repro_torch.configs.base import OptimizerConfig as TOpt
@@ -60,9 +64,11 @@ from repro_torch.configs.base import RunConfig as TRun
 from repro_torch.configs.base import ShapeConfig as TShape
 from repro_torch.embeddings import dedup as TDEDUP
 from repro_torch.embeddings import engine as TENG
+from repro_torch.kernels import fused_scatter as TFS
 from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import ref as TREF
 from repro_torch.launch import steps as TSTEPS
+from repro_torch.models import dlrm as TDL
 from repro_torch.models import quant as TQ
 from repro_torch.optim import adam as TOPT
 from repro_torch.train.trainer import Trainer, TrainerState
@@ -227,6 +233,81 @@ def test_dedup_output_is_the_scatters_input_contract():
     got = TOPS.embedding_scatter(g[uniq.clamp_min(0).long()], uniq, V)
     assert int(num) == named.size
     assert torch.equal(got, g)
+
+
+# -- kernel 5: the fused scatter's sort keys ----------------------------------
+
+def _dlrm0_row_spaces(target_params):
+    """(rows, dim) of dlrm0's row spaces: the published tables (None) or
+    the vocabularies cut to ``target_params`` f32 parameters."""
+    cfg = TREG.get_config("dlrm0")
+    if target_params is not None:
+        cfg = cfg.replace(dlrm=dataclasses.replace(
+            cfg.dlrm, tables=dlrm0._table_specs(target_params=target_params)))
+    coll = TDL.collection_for(cfg)
+    return [(g.total_rows, d) for d, g in sorted(coll.local_groups.items())]
+
+
+@pytest.mark.parametrize("target", [4_000_000_000, 12_000_000_000, None],
+                         ids=["train_cut", "score_cut", "published"])
+def test_fused_scatter_keys_are_int32_for_dlrm0(target):
+    """dlrm0's training cut, scoring cut and published tables: int32 keys,
+    the key of row 0 of each row space the rows before it."""
+    shapes = _dlrm0_row_spaces(target)
+    assert len(shapes) == 6
+    assert not TFS.wide_keys(shapes)
+    assert TFS.key_firsts(shapes) == np.cumsum(
+        [0] + [r for r, _ in shapes[:-1]]).tolist()
+
+
+def test_fused_scatter_keys_widen_at_2_31_rows():
+    """int64 keys once the rows of all row spaces reach 2^31 - 1 (the int32
+    key of an invalid descriptor); the same first keys either way."""
+    assert not TFS.wide_keys([(2 ** 31 - 2, 32)])
+    assert not TFS.wide_keys([(2 ** 30, 32), (2 ** 30 - 2, 64)])
+    assert TFS.key_firsts([(2 ** 30, 32), (2 ** 30 - 2, 64)]) == [0, 2 ** 30]
+    assert TFS.wide_keys([(2 ** 31 - 1, 32)])
+    assert TFS.wide_keys([(2 ** 30, 32), (2 ** 30 - 1, 64)])
+    assert TFS.wide_keys([(2 ** 31 - 1, 4)] * 6)
+    assert TFS.key_firsts([(2 ** 31 - 1, 4)] * 3) == [0, 2 ** 31 - 1,
+                                                      2 ** 32 - 2]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fused_scatter_key_encoding_round_trips(seed):
+    """Random row spaces (1-128 of them; up to 2^23 rows each for seeds 0
+    and 1, up to 2^31 - 1 for seeds 2 and 3), one slot of valency 2 each
+    and a column no slot spans; ids in [-1, R_g + 2): the plain key kernel
+    (``descriptor_keys``) against numpy's first_g + row at both widths (only
+    int64 once the rows reach 2^31 - 1), invalid descriptors at the type's
+    max; then ``split_keys`` gives each valid key's (g, row) back."""
+    rng = np.random.default_rng(seed)
+    G, B = int(rng.integers(1, 129)), 16
+    R = rng.integers(1, 2 ** 23 if seed < 2 else 2 ** 31, size=G)
+    shapes = [(int(r), int(d)) for r, d in
+              zip(R, 4 * rng.integers(1, 65, size=G))]
+    slots = np.array([(g, 2 * g, 2 * g + 2, 0) for g in range(G)], np.int32)
+    rows = np.concatenate([rng.integers(-1, R[g] + 2, size=(B, 2))
+                           for g in range(G)] + [np.zeros((B, 1))], 1)
+    rows = rows.astype(np.int32)
+    col_slot = TREF.column_slots(torch.from_numpy(slots), 2 * G + 1).int()
+    g = np.append(np.repeat(np.arange(G), 2), -1)[None, :].repeat(B, 0)
+    valid = (g >= 0) & (rows >= 0) & (rows < R[np.maximum(g, 0)])
+    first = np.cumsum(np.append(0, R))[np.maximum(g, 0)]
+    assert TFS.wide_keys(shapes) == (R.sum() >= 2 ** 31 - 1)
+    for wide, none in ((False, 2 ** 31 - 1), (True, 2 ** 63 - 1)):
+        if TFS.wide_keys(shapes) and not wide:
+            continue                    # int32 keys do not hold these rows
+        want = np.where(valid, first + rows, none).reshape(-1)
+        got = TFS.descriptor_keys(torch.from_numpy(rows),
+                                  torch.from_numpy(slots), col_slot, shapes,
+                                  wide)
+        assert got.dtype == (torch.int64 if wide else torch.int32)
+        np.testing.assert_array_equal(got.numpy(), want)
+        gg, rr = TFS.split_keys(got[torch.from_numpy(valid.reshape(-1))],
+                                shapes)
+        np.testing.assert_array_equal(gg.numpy(), g[valid])
+        np.testing.assert_array_equal(rr.numpy(), rows[valid])
 
 
 # -- kernel 4q: the int8 fused lookup -------------------------------------------
