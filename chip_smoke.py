@@ -14,8 +14,10 @@ each of which fails the run if it fails:
      GQA / window / softcap / ragged-T shapes; time the kernel, the plain
      version and ``F.scaled_dot_product_attention`` (a yardstick only: the
      port never calls it) with CUDA events over inputs rotated past the
-     50 MB L2, the card held for 20 ms first so the host queues the timed
-     calls (the time is the card's, not the host's launch pace), kernel
+     50 MB L2, the card held for 20 ms or more first so the host queues
+     the timed calls (the time is the card's, not the host's launch pace;
+     the single-table lookup's 150 calls a batch log the host's ms beside
+     it), kernel
      and SDPA in alternating turns (kernel, SDPA, SDPA, kernel); compute
      each kernel's bound from the bytes and flops these inputs need; then
      the pooled and int8 decode kernels at the serving
@@ -122,6 +124,7 @@ Exits non-zero without a CUDA device or without the repository's ``src``.
 import argparse
 import contextlib
 import gc
+import hashlib
 import json
 import math
 import subprocess
@@ -135,9 +138,12 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 # bf16 in and out, f32 inside both the kernel and its plain version: they
 # differ by the last bf16 rounding (2^-8 relative) and f32 reordering.
 KERNEL_ATOL = KERNEL_RTOL = 1e-2
-# `cuda_ms` holds the card for this many clock cycles before the timed
-# calls: ~20 ms at the H100's ~1.98 GHz
+# `cuda_ms` holds the card for at least this many clock cycles before the
+# timed calls: ~20 ms at the H100's ~1.98 GHz; longer where the host
+# takes longer to queue them, up to QUEUE_AHEAD_MAX_S
+CARD_HZ = 1.98e9
 QUEUE_AHEAD_CYCLES = 40_000_000
+QUEUE_AHEAD_MAX_S = 0.5
 # f32 in and out (embedding lookups): the kernel adds a slot's rows in
 # column order, the plain version with torch.sum's tree; at most 128 rows
 # of |x| <= ~5 differ by a few f32 ulps of the sum.  The gather is a copy.
@@ -171,23 +177,41 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(torch, fn, n_inputs, iters=30, warmup=3):
+def cuda_ms(torch, fn, n_inputs, iters=30, warmup=3, host=None):
     """Mean ms per call of ``fn(i)`` on the card by CUDA events; ``i``
     rotates over ``n_inputs`` input sets so repeated calls do not run out
-    of L2.  The card first spins for QUEUE_AHEAD_CYCLES while the host queues
-    the timed calls, so a call shorter than its host-side launch cost is
-    timed by the card's work, not by the host's pace."""
+    of L2.  The card first spins while the host queues the timed calls:
+    QUEUE_AHEAD_CYCLES, or twice the host's time to queue them (from the
+    fastest warm-up call) where that is longer, up to QUEUE_AHEAD_MAX_S;
+    so a call shorter than its host-side launch cost is timed by the
+    card's work, not by the host's pace.  ``host``, a dict, gets the
+    host's ms to queue one timed call (``host_ms``), the spin's ms at
+    CARD_HZ (``queue_ahead_ms``) and whether the host took longer to
+    queue the calls than the card spun (``host_bound``: then the card may
+    have waited for the host)."""
+    queue_s = []
     for i in range(warmup):
+        t0 = time.perf_counter()
         fn(i % n_inputs)
+        queue_s.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
+    cycles = max(QUEUE_AHEAD_CYCLES,
+                 int(min(2 * min(queue_s) * iters, QUEUE_AHEAD_MAX_S)
+                     * CARD_HZ))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+    torch.cuda._sleep(cycles)
     start.record()
+    t0 = time.perf_counter()
     for i in range(iters):
         fn(i % n_inputs)
     end.record()
+    queued_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    if host is not None:
+        host.update(host_ms=queued_s * 1e3 / iters,
+                    queue_ahead_ms=cycles / CARD_HZ * 1e3,
+                    host_bound=queued_s > cycles / CARD_HZ)
     return start.elapsed_time(end) / iters
 
 
@@ -993,12 +1017,22 @@ def _bag_inputs(torch, plan, groups, rows):
     return bags
 
 
+def digest(tensors):
+    """sha256 of the tensors' bytes, in order: whether two source trees'
+    kernels give the same bits on the same inputs."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def dlrm_kernel_phase(torch, F, cfg, coll, tables, DL, ShapeConfig, FL, EG,
-                      EL, REF, ops, B, dev="cuda"):
+                      EL, REF, ops, B, dev="cuda", digests=False):
     """The lookup kernels at the one-card dlrm0's tables and batch B (the
     fused lookup, the row gather and the single-table lookup): held
     against their plain versions, timed beside them, their byte bound and
-    a PyTorch yardstick."""
+    a PyTorch yardstick.  ``digests``: each kernel's result also gets the
+    `digest` of its output on the first batch (``sha256``)."""
     shape = ShapeConfig("dlrm_kernels", "prefill", 1, B)
     feats = []
     for seed in (10, 11):
@@ -1014,9 +1048,12 @@ def dlrm_kernel_phase(torch, F, cfg, coll, tables, DL, ShapeConfig, FL, EG,
     with torch.inference_mode():
         # -- fused lookup ---------------------------------------------------
         _, groups, rows, slots = fused_in[0]
-        err = max_err(torch, FL.fused_lookup(groups, rows, slots, dmax),
+        got = FL.fused_lookup(groups, rows, slots, dmax)
+        err = max_err(torch, got,
                       REF.fused_lookup_ref(groups, rows, slots, dmax),
                       f"fused lookup at B={B}", EMB_ATOL, EMB_RTOL)
+        sha = digest([got]) if digests else None
+        del got
         args = [(g, r, sl, dmax) for _, g, r, sl in fused_in]
         ms = cuda_ms(torch, lambda i: FL.fused_lookup(*args[i]), 2, iters=20)
         plain_ms = cuda_ms(torch, lambda i: REF.fused_lookup_ref(*args[i]),
@@ -1049,17 +1086,22 @@ def dlrm_kernel_phase(torch, F, cfg, coll, tables, DL, ShapeConfig, FL, EG,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=library_ms, batch=B,
             valid_rows=valid_rows, distinct_rows=distinct_rows,
-            bytes=nbytes)
+            bytes=nbytes, sha256=sha)
         del fused_in, args, rows, groups
         # -- row gather: one launch per table, as the per-table route -----
         sets = [[(coll.table_view(tables, t), f[t.name])
                  for t in cfg.dlrm.tables] for f in feats]
         err = 0.0
+        h = hashlib.sha256()
         for view, ids in sets[0]:
-            err = max(err, max_err(torch, EG.embedding_gather(view, ids),
+            got = EG.embedding_gather(view, ids)
+            err = max(err, max_err(torch, got,
                                    REF.embedding_gather_ref(view, ids),
                                    f"row gather at B={B}", EMB_ATOL,
                                    EMB_RTOL))
+            if digests:
+                h.update(digest([got]).encode())
+            del got
 
         def each(fn, i, sets=sets):
             for args in sets[i]:
@@ -1091,7 +1133,8 @@ def dlrm_kernel_phase(torch, F, cfg, coll, tables, DL, ShapeConfig, FL, EG,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=library_ms, batch=B,
             launches_timed=len(sets[0]), valid_rows=valid_rows,
-            distinct_rows=sum(distinct), bytes=nbytes)
+            distinct_rows=sum(distinct), bytes=nbytes,
+            sha256=h.hexdigest() if digests else None)
         del clamped
         # -- single-table lookup: one launch per table through ops (this
         # slice's path), counted; held against its plain version and the
@@ -1114,9 +1157,13 @@ def dlrm_kernel_phase(torch, F, cfg, coll, tables, DL, ShapeConfig, FL, EG,
             err_route = max(err_route, max_err(
                 torch, got, per_table[t.name], f"embedding lookup vs the "
                 f"per-table route at B={B}", EMB_ATOL, EMB_RTOL))
+        sha = digest(path) if digests else None
         del path, per_table
+        # 150 wrapper calls a batch: 4 batches timed, so the host queues
+        # every launch behind the spin (`host` says whether it did)
+        host = {}
         ms = cuda_ms(torch, lambda i: each(EL.embedding_lookup, i, lsets), 2,
-                     iters=10)
+                     iters=4, host=host)
         plain_ms = cuda_ms(torch, lambda i: each(REF.embedding_lookup_ref, i,
                                                  lsets), 2, iters=5, warmup=1)
         bags = []                   # F.embedding_bag(ids, table, weights)
@@ -1130,7 +1177,7 @@ def dlrm_kernel_phase(torch, F, cfg, coll, tables, DL, ShapeConfig, FL, EG,
             bags.append(per)
         library_ms = cuda_ms(torch, lambda i: [
             F.embedding_bag(ids, view, mode="sum", per_sample_weights=w)
-            for ids, view, w in bags[i]], 2, iters=10)
+            for ids, view, w in bags[i]], 2, iters=4)
         del bags
         # bytes: each table's distinct rows once, every id once, the (B, D)
         # output once; operations: one add per lane of every valid id
@@ -1148,12 +1195,15 @@ def dlrm_kernel_phase(torch, F, cfg, coll, tables, DL, ShapeConfig, FL, EG,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
             batch=B, max_abs_err_vs_per_table_route=err_route,
             launches_timed=len(lsets[0]), valid_rows=valid_rows,
-            distinct_rows=sum(distinct), bytes=nbytes)
+            distinct_rows=sum(distinct), bytes=nbytes, sha256=sha,
+            host_ms_a_batch=host["host_ms"],
+            queue_ahead_ms=host["queue_ahead_ms"],
+            host_bound=host["host_bound"])
     return out
 
 
 def int8_lookup_phase(torch, cfg, coll, tables, DL, ShapeConfig, FL, QU,
-                      REF, ops, dev="cuda"):
+                      REF, ops, dev="cuda", digests=False):
     """The int8 fused lookup at full width: the resident scoring row
     spaces quantised with ``quantize_row_space`` block by block (at most
     one f32 block's tile extra), then ``ops.fused_lookup_q`` at B = 256
@@ -1200,7 +1250,11 @@ def int8_lookup_phase(torch, cfg, coll, tables, DL, ShapeConfig, FL, QU,
             used = check_int8_bound(
                 torch, REF, got, FL.fused_lookup(groups, rows, slots, dmax),
                 qs, rows, slots, f"int8 fused lookup at B={B}")
-            del got
+            again = FL.fused_lookup_q(qg, qs, rows, slots, dmax)
+            check(torch.equal(got, again), f"int8 fused lookup at B={B}: "
+                                           f"two launches differ")
+            sha = digest([got]) if digests else None
+            del got, again
             ms = cuda_ms(torch, lambda i: FL.fused_lookup_q(
                 *ins[i][:2], *ins[i][3:], dmax), 2, iters=20)
             f32_ms = cuda_ms(torch, lambda i: FL.fused_lookup(
@@ -1223,6 +1277,7 @@ def int8_lookup_phase(torch, cfg, coll, tables, DL, ShapeConfig, FL, QU,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=None, batch=B,
             f32_fused_lookup_ms=f32_ms, int8_bound_share_used=used,
+            sha256=sha,
             valid_rows=sum(v for v, _ in counts),
             distinct_rows=sum(nd for _, nd in counts), bytes=nbytes)
         del ins, qg, qs, groups, rows, slots

@@ -3,7 +3,8 @@
 one card, in one call.
 
     python3 scripts/torch_attention_ab.py --trees OLD NEW NEW OLD \
-        [--phases attention|scatter] [--kernels-only] [--out results.json]
+        [--phases attention|scatter|lookup] [--kernels-only] \
+        [--out results.json]
 
 Each tree is a checkout (or a ``git archive``) of this repository.  Every
 entry of ``--trees`` runs in a fresh process, in the order given, which
@@ -31,6 +32,16 @@ table parameters at B = 4096 (``Dataset`` ids): the fused scatter (row
 apart, where the tree has them), the longest run alone and
 ``index_add_``; the 150 calls of the scatter of deduplicated ids (row 8)
 whole, fill and kernel, and zero fill + ``index_copy_``.
+
+``--phases lookup`` runs instead the embedding lookups on dlrm0 cut to
+12e9 table parameters (``make_batch`` ids): ``dlrm_kernel_phase`` at B =
+256 and 4096 (the fused lookup, row 4; the row gather, row 6; the
+single-table lookup, row 7, its 150 calls a batch timed by the card with
+the host's ms a batch beside), the scoring phase (``dlrm_score_phase``:
+20 fused and 3 per-table batches of 4096) and ``int8_lookup_phase`` (row
+4q at B = 256 and 4096): each row's ms, bound and library ms, the median
+ms of a fused batch, and a sha256 of each kernel's output on the same
+inputs, so that the summary shows whether the trees' bits agree.
 
 Each run prints one JSON line (the card's name and power limit as
 ``nvidia-smi`` gives them, the kernels' ms, bound and SDPA ms, tokens/s,
@@ -222,21 +233,114 @@ def summary(runs):
     return table
 
 
+LOOKUP = ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+          "max_abs_err", "sha256", "host_ms_a_batch", "queue_ahead_ms",
+          "host_bound", "f32_fused_lookup_ms", "int8_bound_share_used")
+
+
+def lookup_worker(tree: Path) -> dict:
+    """Rows 4, 4q, 6 and 7 of ``tree`` and its scoring batch, on dlrm0 cut
+    to 12e9 table parameters."""
+    sys.path.insert(0, str(tree / "src"))
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import build
+    from repro_torch.kernels import embedding_gather as EG
+    from repro_torch.kernels import embedding_lookup as EL
+    from repro_torch.kernels import fused_lookup as FL
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as REF
+    from repro_torch.models import api
+    from repro_torch.models import dlrm as DL
+    from repro_torch.models import quant as QU
+    CS = _chip_smoke()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_attention_ab: no CUDA device")
+    assert Path(FL.__file__).is_relative_to(tree), FL.__file__
+    out = {"tree": str(tree), "card": _card()}
+    t0 = time.perf_counter()
+    build.library()
+    out["build_s"] = time.perf_counter() - t0
+    cfg = CS.dlrm0_cut(registry, CS.DLRM_TABLE_PARAMS)
+    params = api.init_params(cfg, seed=0, device="cuda")
+    coll = DL.collection_for(cfg)
+    names = {"fused_lookup": "row4", "embedding_gather": "row6",
+             "embedding_lookup": "row7"}
+    for B in (CS.DLRM_CHIP_BATCH, CS.DLRM_BATCH):
+        kern = CS.dlrm_kernel_phase(torch, F, cfg, coll, params["tables"], DL,
+                                    ShapeConfig, FL, EG, EL, REF, ops, B,
+                                    digests=True)
+        for n, row in names.items():
+            out[f"{row}_B{B}"] = {k: kern[n][k] for k in LOOKUP
+                                  if k in kern[n]}
+        torch.cuda.empty_cache()
+    stats, _ = CS.dlrm_score_phase(torch, cfg, params, coll, api,
+                                   ShapeConfig, FL, EG)
+    out["score"] = {k: stats[k] for k in ("median_ms_fused",
+                                          "ms_per_batch_fused",
+                                          "median_ms_per_table",
+                                          "samples_per_s_fused")}
+    torch.cuda.empty_cache()
+    int8 = CS.int8_lookup_phase(torch, cfg, coll, params["tables"], DL,
+                                ShapeConfig, FL, QU, REF, ops, digests=True)
+    for B in (CS.DLRM_CHIP_BATCH, CS.DLRM_BATCH):
+        out[f"row4q_B{B}"] = {k: int8[B][k] for k in LOOKUP if k in int8[B]}
+    return out
+
+
+def lookup_summary(runs):
+    """Per tree: the mean over its runs of each row's ms (and the runs'
+    ms), its bound and library ms, the median ms of a fused batch, and
+    the sha256 of each row's output where the runs agree; then whether
+    every tree gave the same sha256 for each row."""
+    by = {}
+    for r in runs:
+        by.setdefault(r["tree"], []).append(r)
+    rows = [k for k in runs[0] if k.startswith("row")]
+    table = {}
+    for tree, rs in by.items():
+        row = {"runs": len(rs), "card": rs[0]["card"]}
+        for k in rows:
+            for n in ("ms", "plain_ms", "library_ms", "f32_fused_lookup_ms"):
+                vals = [r[k][n] for r in rs if r[k].get(n) is not None]
+                if len(vals) == len(rs):
+                    row[f"{k}_{n}"] = statistics.mean(vals)
+                    row[f"{k}_{n}_runs"] = vals
+            row[f"{k}_bound_ms"] = rs[0][k]["bound_ms"]
+            if "host_ms_a_batch" in rs[0][k]:
+                row[f"{k}_host_ms_a_batch"] = [r[k]["host_ms_a_batch"]
+                                               for r in rs]
+                row[f"{k}_host_bound"] = [r[k]["host_bound"] for r in rs]
+            shas = {r[k]["sha256"] for r in rs}
+            row[f"{k}_sha256"] = shas.pop() if len(shas) == 1 else "differ"
+        row["median_ms_fused_batch"] = [r["score"]["median_ms_fused"]
+                                        for r in rs]
+        table[tree] = row
+    table["same_bits_across_trees"] = {
+        k: len({t[f"{k}_sha256"] for n, t in table.items()
+                if n != "same_bits_across_trees"}) == 1 for k in rows}
+    return table
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--trees", nargs="+", help="source trees, in run order")
     ap.add_argument("--out", help="also write every run as JSON here")
     ap.add_argument("--kernels-only", action="store_true",
                     help="time the kernels only (no serve or pooled decode)")
-    ap.add_argument("--phases", choices=("attention", "scatter"),
+    ap.add_argument("--phases", choices=("attention", "scatter", "lookup"),
                     default="attention",
-                    help="the attention kernels and serving (default), or "
-                         "the two embedding-gradient scatters")
+                    help="the attention kernels and serving (default), "
+                         "the two embedding-gradient scatters, or the "
+                         "embedding lookups and scoring")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
         tree = Path(args.worker).resolve()
         res = (scatter_worker(tree) if args.phases == "scatter"
+               else lookup_worker(tree) if args.phases == "lookup"
                else worker(tree, args.kernels_only))
         print(json.dumps(res), flush=True)
         return 0
@@ -252,7 +356,8 @@ def main(argv=None):
             raise SystemExit(f"run on {tree} failed ({res.returncode})")
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
-    table = (scatter_summary if args.phases == "scatter" else summary)(runs)
+    table = {"scatter": scatter_summary, "lookup": lookup_summary,
+             "attention": summary}[args.phases](runs)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"runs": runs, "summary": table},

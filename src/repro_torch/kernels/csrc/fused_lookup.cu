@@ -25,34 +25,30 @@
 // travel by value in the kernel's parameters (__grid_constant__, no copy).
 //
 // Bound on the H100: bytes.  Each valid id reads one row of dim_g elements
-// once (4 bytes each in f32, 1 in int8, plus one scale per tile) and adds
-// it (one flop per element), so the kernel's job is to keep enough row
-// loads in flight.  Design (one body, templated on the row type):
-//   * one warp per (sample b, slot k); it loads 32 row ids at once
-//     (coalesced), broadcasts them with shuffles, and issues the loads of
-//     UNROLL rows before it adds them; lane l owns chunks l, l+32, ... of
-//     4 row elements (a 16-byte float4 in f32, a 4-byte char4 in int8: an
-//     int8 row of d32 is 32 bytes), so one row is read by consecutive
-//     lanes; chunk l + 32c lies in tile c, so an int8 lane dequantises
-//     its chunk c with scale c of the row;
-//   * the sum and the count stay in f32 registers and are added in column
-//     order, with no atomics: the result is the same run to run;
-//   * every offset is 64-bit: a dlrm0 row space holds more than 2^31
-//     elements.
-// An id at or past the group's last row reads the last row (JAX's
-// mode="clip"); a span outside [0, S) is clamped to it.
-// Not yet done (a later PR): TMA/cp.async staging, packing several narrow
-// slots into one warp (a dim-32 slot keeps 8 of 32 lanes busy), and
-// reading each distinct hot row once per block.
+// (4 bytes each in f32, 1 in int8, plus one scale per tile) and adds it
+// (one flop per element); rows that repeat within a batch (the Zipf ids)
+// can come from L2.  The bag combine is `bag_rows.cuh`, shared with the
+// single-table lookup: blocks in table-major order (block x is slot
+// x / tiles, tile x % tiles of its samples), lane groups sized by the
+// slot's dim, the valid ids compacted and 16 row loads of 16 bytes a lane
+// in flight.  f32 rows take `F32Row`; int8 rows `Q8Row` (16 elements a
+// 16-byte load, one scale) where the dim is a multiple of 16 and the row
+// space is 16-byte aligned, else `Q8NRow` (4 elements a load).  Every
+// offset is 64-bit: a dlrm0 row space holds more than 2^31 elements.
+// A span outside [0, S) is clamped to it; a slot whose group is out of
+// range writes zeros.
+// Not yet done (a later PR): the (B, sum of dims) output the dense tower
+// reads (lanes past a slot's dim are written as zeros, 629 MB against
+// 314.6 MB of real lanes for dlrm0 at B = 4096), TMA staging, and a
+// row's chunks split over warps where a grid is small and rows are wide.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bag_rows.cuh"
 
 namespace {
 
 constexpr int MAXG = 128;       // row spaces one launch can address
-constexpr int WARPS = 8;        // (b, k) pairs per block
-constexpr int NT = WARPS * 32;
-constexpr int UNROLL = 4;       // rows whose loads are in flight per warp
 
 struct GroupTable {
   const void* base[MAXG];
@@ -62,107 +58,43 @@ struct GroupTable {
   int n;
 };
 
-__device__ __forceinline__ void add4(float4& acc, const float4& v) {
-  acc.x += v.x;
-  acc.y += v.y;
-  acc.z += v.z;
-  acc.w += v.w;
-}
-
-// Chunk ch (4 elements) of row r as f32; c = ch / 32 is its 128-lane tile.
-template <typename T>
-__device__ __forceinline__ float4 load_chunk(const void* base,
-                                             const float* scale, size_t r,
-                                             int nch, int nt, int ch, int c);
-
-template <>
-__device__ __forceinline__ float4 load_chunk<float>(const void* base,
-                                                    const float*, size_t r,
-                                                    int nch, int, int ch,
-                                                    int) {
-  return __ldg(static_cast<const float4*>(base) + r * nch + ch);
-}
-
-template <>
-__device__ __forceinline__ float4 load_chunk<int8_t>(const void* base,
-                                                     const float* scale,
-                                                     size_t r, int nch,
-                                                     int nt, int ch, int c) {
-  const char4 q = __ldg(static_cast<const char4*>(base) + r * nch + ch);
-  const float s = __ldg(scale + r * nt + c);
-  return make_float4((float)q.x * s, (float)q.y * s, (float)q.z * s,
-                     (float)q.w * s);
-}
-
-// CPL: chunks per lane (Dm <= 128 * CPL); T: the row type, float or int8_t
-template <int CPL, typename T>
-__global__ void __launch_bounds__(NT) fused_lookup_kernel(
-    const __grid_constant__ GroupTable groups, const int* __restrict__ rows,
-    const int4* __restrict__ slots, float* __restrict__ out, int B, int S,
-    int K, int Dm) {
-  const long long w = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
-  if (w >= (long long)B * K) return;
-  const int lane = threadIdx.x % 32;
-  const int b = (int)(w / K), k = (int)(w % K);
+// INT8: the row spaces are int8 with scales, else f32.
+template <bool INT8>
+__global__ void __launch_bounds__(bag_rows::MAX_WARPS * 32, 2)
+    fused_lookup_kernel(const __grid_constant__ GroupTable groups,
+                        const int* __restrict__ rows,
+                        const int4* __restrict__ slots,
+                        float* __restrict__ out, int B, int S, int K, int Dm,
+                        long long tiles, int spread) {
+  extern __shared__ int sid[];
+  const int k = (int)(blockIdx.x / tiles);
+  const long long tile = blockIdx.x % tiles;
   const int4 sl = slots[k];                 // group, col a, col b, mean
   const bool ok = sl.x >= 0 && sl.x < groups.n;
   const int g = ok ? sl.x : 0;
-  const int nch = ok ? groups.dim[g] / 4 : 0;
-  const int nt = (nch + 31) / 32;          // 128-lane tiles of a row
-  const int last = groups.rows[g] - 1;
-  const void* __restrict__ base = groups.base[g];
-  const float* __restrict__ scale = groups.scale[g];
-  const int a = max(sl.y, 0);
-  const int e = ok ? min(sl.z, S) : 0;
-  const int* __restrict__ rrow = rows + (size_t)b * S;
-
-  float4 acc[CPL];
-#pragma unroll
-  for (int c = 0; c < CPL; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  int cnt = 0;
-  for (int c0 = a; c0 < e; c0 += 32) {
-    const int n = min(32, e - c0);
-    const int mine = lane < n ? __ldg(rrow + c0 + lane) : -1;
-    for (int j = 0; j < n; j += UNROLL) {  // j <= 28, so j + u <= 31
-      int r[UNROLL];
-      float4 v[UNROLL][CPL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        r[u] = min(__shfl_sync(0xffffffffu, mine, j + u), last);
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) {
-          const int ch = lane + 32 * c;
-          v[u][c] = (r[u] >= 0 && ch < nch)
-                        ? load_chunk<T>(base, scale, (size_t)r[u], nch, nt,
-                                        ch, c)
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        if (r[u] < 0) continue;             // the same for the whole warp
-        ++cnt;
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) add4(acc[c], v[u][c]);
-      }
-    }
-  }
-
-  const float denom = (sl.w != 0 && cnt > 0) ? (float)cnt : 1.f;
-  float4* o = reinterpret_cast<float4*>(out + ((size_t)b * K + k) * Dm);
-#pragma unroll
-  for (int c = 0; c < CPL; ++c) {
-    const int ch = lane + 32 * c;
-    if (ch >= Dm / 4) continue;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ch < nch)
-      val = make_float4(acc[c].x / denom, acc[c].y / denom,
-                        acc[c].z / denom, acc[c].w / denom);
-    o[ch] = val;
-  }
+  bag_rows::Bags s;
+  s.base = groups.base[g];
+  s.scale = groups.scale[g];
+  s.dim = ok ? groups.dim[g] : 0;
+  s.last = groups.rows[g] - 1;
+  s.ids = rows;
+  s.S = S;
+  s.a = max(sl.y, 0);
+  s.e = ok ? min(sl.z, S) : 0;
+  s.mean = sl.w;
+  s.out = out + (size_t)k * Dm;
+  s.out_stride = (long long)K * Dm;
+  s.Dm = Dm;
+  s.B = B;
+  if (!INT8)
+    bag_rows::run<bag_rows::F32Row>(s, tile, spread, sid);
+  else if (s.dim % 16 == 0 && reinterpret_cast<uintptr_t>(s.base) % 16 == 0)
+    bag_rows::run<bag_rows::Q8Row>(s, tile, spread, sid);
+  else
+    bag_rows::run<bag_rows::Q8NRow>(s, tile, spread, sid);
 }
 
-template <typename T>
+template <bool INT8>
 int launch(const void* const* group_ptrs, const void* const* scale_ptrs,
            const int* group_dims, const int* group_rows, int n_groups,
            const void* rows, const void* slots, void* out, int B, int S,
@@ -178,28 +110,30 @@ int launch(const void* const* group_ptrs, const void* const* scale_ptrs,
     gt.base[g] = group_ptrs[g];
     gt.scale[g] =
         scale_ptrs ? static_cast<const float*>(scale_ptrs[g]) : nullptr;
-    if (sizeof(T) == 1 && gt.scale[g] == nullptr)
-      return (int)cudaErrorInvalidValue;
+    if (INT8 && gt.scale[g] == nullptr) return (int)cudaErrorInvalidValue;
     gt.dim[g] = group_dims[g];
     gt.rows[g] = group_rows[g];
   }
   gt.n = n_groups;
   if (B == 0 || K == 0) return (int)cudaSuccess;
-  const long long blocks = ((long long)B * K + WARPS - 1) / WARPS;
+  // the widest lane groups any slot can take set the blocks a slot
+  const bool spread = bag_rows::spread_for(B, K);
+  int lanes = 4;
+  for (int g = 0; g < n_groups; ++g) {
+    const bool q16 = group_dims[g] % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(gt.base[g]) % 16 == 0;
+    const int L = INT8 && q16 ? bag_rows::lanes_for(gt.dim[g], 16, true)
+                              : bag_rows::lanes_for(gt.dim[g], 4, spread);
+    if (L > lanes) lanes = L;
+  }
+  const bag_rows::Shape sh = bag_rows::shape(B, K, spread, lanes);
+  const long long blocks = sh.tiles * K;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int* r = static_cast<const int*>(rows);
-  const int4* sl = static_cast<const int4*>(slots);
-  float* o = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Dm <= 128)
-    fused_lookup_kernel<1, T><<<(unsigned)blocks, NT, 0, st>>>(gt, r, sl, o,
-                                                               B, S, K, Dm);
-  else if (Dm <= 256)
-    fused_lookup_kernel<2, T><<<(unsigned)blocks, NT, 0, st>>>(gt, r, sl, o,
-                                                               B, S, K, Dm);
-  else
-    fused_lookup_kernel<4, T><<<(unsigned)blocks, NT, 0, st>>>(gt, r, sl, o,
-                                                               B, S, K, Dm);
+  fused_lookup_kernel<INT8>
+      <<<(unsigned)blocks, sh.warps * 32, sh.smem(),
+         static_cast<cudaStream_t>(stream)>>>(
+          gt, static_cast<const int*>(rows), static_cast<const int4*>(slots),
+          static_cast<float*>(out), B, S, K, Dm, sh.tiles, sh.spread);
   return (int)cudaGetLastError();
 }
 
@@ -209,7 +143,7 @@ extern "C" int repro_fused_lookup_f32(
     const void* const* group_ptrs, const int* group_dims,
     const int* group_rows, int n_groups, const void* rows, const void* slots,
     void* out, int B, int S, int K, int Dm, void* stream) {
-  return launch<float>(group_ptrs, nullptr, group_dims, group_rows, n_groups,
+  return launch<false>(group_ptrs, nullptr, group_dims, group_rows, n_groups,
                        rows, slots, out, B, S, K, Dm, stream);
 }
 
@@ -220,6 +154,6 @@ extern "C" int repro_fused_lookup_q8(
     const int* group_dims, const int* group_rows, int n_groups,
     const void* rows, const void* slots, void* out, int B, int S, int K,
     int Dm, void* stream) {
-  return launch<int8_t>(group_ptrs, scale_ptrs, group_dims, group_rows,
-                        n_groups, rows, slots, out, B, S, K, Dm, stream);
+  return launch<true>(group_ptrs, scale_ptrs, group_dims, group_rows,
+                      n_groups, rows, slots, out, B, S, K, Dm, stream);
 }

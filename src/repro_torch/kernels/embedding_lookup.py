@@ -9,7 +9,8 @@ sum / mean over the valency in one pass, without building the
 (B, Vl, D) rows.
 
 Bound on the H100: bytes.  Each valid id reads one row once; there is one
-add per 4 bytes.  One warp per sample adds its rows in column order with
+add per 4 bytes.  The fused lookup's bag combine (``csrc/bag_rows.cuh``)
+with one slot: a lane group per sample adds its rows in column order with
 f32 sums in registers, so the result does not change from run to run.
 See the source for the design.
 

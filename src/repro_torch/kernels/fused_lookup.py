@@ -15,9 +15,11 @@ Bound on the H100: bytes.  Each valid id reads one row of its table once;
 there is one add per 4 bytes.  The Pallas kernel takes one (R, Dmax) row
 space, every width-group padded and concatenated on each call; this
 kernel takes the width-groups where they lie, so no copy of the tables is
-made.  One warp per (sample, table) walks the table's descriptor columns
-in order with f32 sums in registers, so the result does not change from
-run to run.  See the source for the design.
+made.  The blocks run table by table (``csrc/bag_rows.cuh``, shared with
+the single-table lookup): lane groups sized by each table's dim take one
+bag (sample) each and add its valid rows in column order with f32 sums
+in registers, so the result does not change from run to run.  See the
+source for the design.
 
 Its gradient is ``ops.FusedLookup``'s, whose backward launches the
 fused-scatter kernel (``fused_scatter.py``).

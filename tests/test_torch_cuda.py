@@ -769,6 +769,154 @@ def test_ops_routes_cuda_tensors_to_the_sparsecore_kernels(card):
                                                          q0 + 1)
 
 
+# -- the lookups' bag combine (csrc/bag_rows.cuh), at tolerance 0 ---------
+
+def _column_order(groups, rows, slots, dmax, scales=None):
+    """The lookup as the kernels add it: per slot, an f32 sum over its
+    columns in column order (acc += where(valid, row, 0); an int8 row is
+    q * its tile's scale first), divided by the count floored at 1 in a
+    mean slot; the span clamped to [0, S), ids past the last row read it,
+    lanes past the dim zero."""
+    B, S = rows.shape
+    out = torch.zeros((B, slots.shape[0], dmax), device=rows.device)
+    for k, (g, a, b, mean) in enumerate(slots.tolist()):
+        table = groups[g]
+        rows_g, dim = table.shape
+        acc = torch.zeros((B, dim), device=rows.device)
+        cnt = torch.zeros((B, 1), device=rows.device)
+        for c in range(max(a, 0), min(b, S)):
+            ids = rows[:, c].long()
+            valid = (ids >= 0)[:, None]
+            r = ids.clamp(0, rows_g - 1)
+            row = table[r].float()
+            if scales is not None:
+                row = row * scales[g][r].repeat_interleave(128, 1)[:, :dim]
+            acc = acc + torch.where(valid, row, 0.0)
+            cnt = cnt + valid
+        if mean:
+            acc = acc / cnt.clamp_min(1)
+        out[:, k, :dim] = acc
+    return out
+
+
+# dims: every lane-group shape of bag_rows.cuh (chunks of 16 bytes: 1-128
+# a row); valencies 0, 1, 31-33, 100, 128; B below and above the bags a
+# launch spreads (B * K < 128 * 132), not a multiple of a block's bags
+BAG_DIMS = [(32, 64, 96, 128, 192, 256),
+            (4, 12, 20, 44, 52, 100, 132, 300, 388, 512)]
+BAG_SPANS = [0, 1, 31, 32, 33, 100, 128]
+
+
+def _bag_case(rng, dev, dims, B):
+    """Row spaces of ``dims``; one slot of each span width a group, sum
+    and mean in turn, plus a clamped span and an empty one; ids in
+    [-3, rows + 5) (negatives are no value, ids past the end read the
+    last row), a sample with no id, a row repeated over a span."""
+    groups = [torch.from_numpy(rng.standard_normal(
+        (int(rng.integers(3, 300)), d)).astype(np.float32)).to(dev)
+        for d in dims]
+    slots, c0 = [], 0
+    for i, w in enumerate(BAG_SPANS * ((len(dims) + 1) // 2)):
+        slots.append((i % len(dims), c0, c0 + w, i % 2))
+        c0 += w
+    S = c0
+    slots += [(0, -4, 3, 1), (len(dims) - 1, S - 2, S + 9, 0), (1, 5, 5, 1)]
+    rows = np.empty((B, S), dtype=np.int32)
+    for g, a, b, _ in slots:
+        a, b = max(a, 0), min(b, S)
+        rows[:, a:b] = rng.integers(-3, groups[g].shape[0] + 5,
+                                    size=(B, b - a))
+    rows[0] = -1
+    if B > 1:
+        rows[1, slots[5][1]:slots[5][2]] = 1
+    return (groups, torch.from_numpy(rows).to(dev),
+            torch.tensor(slots, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("B", [1, 37, 1700])
+@pytest.mark.parametrize("dims", BAG_DIMS, ids=str)
+def test_fused_lookup_bitwise_column_order(card, dims, B):
+    rng = np.random.default_rng(B + len(dims))
+    groups, rows, slots = _bag_case(rng, card, dims, B)
+    dmax = max(dims)
+    got = FL.fused_lookup(groups, rows, slots, dmax)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _column_order(groups, rows, slots, dmax))
+    assert not got[0].any()
+
+
+def test_fused_lookup_one_slot_one_sample_bitwise(card):
+    rng = np.random.default_rng(4)
+    table = torch.from_numpy(rng.standard_normal((40, 96)).astype(
+        np.float32)).to(card)
+    slots = torch.tensor([[0, 0, 100, 1]], dtype=torch.int32, device=card)
+    for B in (1, 33):
+        rows = torch.from_numpy(rng.integers(-1, 45, size=(B, 100)).astype(
+            np.int32)).to(card)
+        got = FL.fused_lookup([table], rows, slots, 128)
+        torch.cuda.synchronize()
+        assert torch.equal(got, _column_order([table], rows, slots, 128))
+
+
+@pytest.mark.parametrize("B", [1, 37, 1700])
+@pytest.mark.parametrize("dims", BAG_DIMS, ids=str)
+def test_fused_lookup_q_bitwise_run_to_run_and_bars(card, dims, B):
+    rng = np.random.default_rng(B + 7 * len(dims))
+    groups, rows, slots = _bag_case(rng, card, dims, B)
+    S = rows.shape[1]
+    # the plain version takes spans inside [0, S)
+    slots[:, 1:3] = slots[:, 1:3].clamp(0, S)
+    qts = [QU.quantize_row_space(g) for g in groups]
+    qg, qs = [q.q for q in qts], [q.scale for q in qts]
+    dmax = max(dims)
+    got = FL.fused_lookup_q(qg, qs, rows, slots, dmax)
+    assert torch.equal(got, FL.fused_lookup_q(qg, qs, rows, slots, dmax))
+    torch.testing.assert_close(got, REF.fused_lookup_q_ref(qg, qs, rows,
+                                                           slots, dmax),
+                               atol=EMB_ATOL, rtol=EMB_RTOL)
+    assert torch.equal(got, _column_order(qg, rows, slots, dmax, qs))
+    f32 = FL.fused_lookup(groups, rows, slots, dmax)
+    half = REF.fused_lookup_q_ref([torch.ones_like(q) for q in qg],
+                                  [x / 2 for x in qs], rows, slots, dmax)
+    assert bool(((got - f32).abs()
+                 <= half + EMB_ATOL + EMB_RTOL * f32.abs()).all())
+    # a row space that is not 16-byte aligned takes 4-byte loads: the same
+    # products and sums, so the same bits
+    shifted = []
+    for q in qg:
+        buf = torch.empty(q.numel() + 4, dtype=torch.int8, device=card)
+        view = buf[4:].view(q.shape)
+        view.copy_(q)
+        shifted.append(view)
+    assert torch.equal(got, FL.fused_lookup_q(shifted, qs, rows, slots,
+                                              dmax))
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("D", [4, 12, 32, 52, 96, 132, 256, 300, 512])
+def test_embedding_lookup_bitwise_column_order(card, D, combiner):
+    rng = np.random.default_rng(D)
+    V = 97
+    table = torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32)
+                             ).to(card)
+    mean = int(combiner == "mean")
+    for B, Vl in ((1, 33), (37, 0), (37, 1), (37, 31), (37, 32), (300, 100),
+                  (17000, 3), (19, 128)):
+        ids = torch.from_numpy(rng.integers(-3, V + 5, size=(B, Vl)).astype(
+            np.int32)).to(card)
+        slot = torch.tensor([[0, 0, Vl, mean]], dtype=torch.int32,
+                            device=card)
+        got = EL.embedding_lookup(table, ids, combiner)
+        torch.cuda.synchronize()
+        assert torch.equal(got, _column_order([table], ids, slot, D)[:, 0])
+    view = table[3:50]                   # a row slice of a row space
+    ids = torch.from_numpy(rng.integers(-1, 60, size=(45, 40)).astype(
+        np.int32)).to(card)
+    slot = torch.tensor([[0, 0, 40, mean]], dtype=torch.int32, device=card)
+    assert torch.equal(EL.embedding_lookup(view, ids, combiner),
+                       _column_order([view], ids, slot, D)[:, 0])
+
+
 # ---------------------------------------------------------------------------
 # Pooled block-table decode and int8-KV decode (rows 3, 1q, 3q)
 # ---------------------------------------------------------------------------
