@@ -44,6 +44,27 @@ each of which fails the run if it fails:
      pooled kernel, counted), the same loop on the view gathered once, and
      ``api.decode_n(tables=)``: logits bitwise equal on the admitted
      slots, equal tokens, equal pools, no other pool row touched;
+ 4c. pooled engine — full-width olmo-1b in three ``ServeEngine``s on one
+     shared-header trace (24 requests: one of 2 tiers' 224-token header,
+     on half of them one of 2 16-token few-shot preambles, a tail of 8-32
+     tokens within ``prompt_len``; 32 new tokens each): pooled with
+     sharing (``benchmarks/kv_prefix.py``'s ``SliceSpec(slots=8,
+     max_len=288, prompt_len=256, chunk=8, kv_block=16, suffix_len=64)``),
+     pooled with ``kv_share=False`` and the dense spec of the same
+     envelope, each counted on its own.  Share and no-share streams
+     bitwise equal, ``kv_close`` finds every block back, sharing cuts
+     ``prefill_flops_proxy`` and shares tokens, the pooled runs launch
+     row 1 and never the flash kernel.  Reports tokens/s, TTFT, ms a
+     decode chunk, ms a prefill dispatch (a suffix dispatch and a dense
+     admission by CUDA events), a profile of one suffix dispatch, peak
+     memory;
+ 4d. int8 weights — the serve phase's 16 requests in
+     ``ServeEngine(SliceSpec(..., quant="int8"))``, counted (rows 1 and 2
+     launched), then an engine on ``dequantize_params`` of the same
+     quantised tree: streams bitwise equal.  Reports weight storage bytes
+     against the bf16 tree's (0.5156), tokens/s and TTFT of both, and a
+     profile of one decode chunk of each (the device time that
+     dequantising every weight at its use adds a step);
   5. DLRM reference — reduced dlrm0 with the same weights and batch on the
      CPU (plain versions) and on the card (kernels): the logits of both
      lookup routes agree;
@@ -728,26 +749,36 @@ def reference_phase(torch, registry, api, TF, dev="cuda"):
     return worst
 
 
+SERVE_SPEC = dict(slots=8, max_len=1024, prompt_len=128, chunk=8)
+SERVE_NEW_TOKENS = 128
+
+
+def serve_trace(np, vocab):
+    """The serve phase's warm-up prompt (40 tokens) and its 16 requests'
+    prompts of 32-128 tokens, from seed 0."""
+    rng = np.random.default_rng(0)
+    warm = rng.integers(0, vocab, size=40)
+    return warm, [rng.integers(0, vocab, size=int(rng.integers(32, 129)))
+                  for _ in range(16)]
+
+
 def serve_phase(torch, np, cfg, api, engine_mod, DA, FA, dev="cuda"):
     t0 = time.perf_counter()
     params = api.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
-    spec = engine_mod.SliceSpec(slots=8, max_len=1024, prompt_len=128,
-                                chunk=8)
-    rng = np.random.default_rng(0)
+    spec = engine_mod.SliceSpec(**SERVE_SPEC)
+    warm_prompt, prompts = serve_trace(np, cfg.vocab_size)
     # warm-up (cuBLAS handles, allocator), outside the counted run
     warm = engine_mod.ServeEngine(cfg, params, spec, device=dev)
-    warm.submit(rng.integers(0, cfg.vocab_size, size=40), max_new_tokens=9)
+    warm.submit(warm_prompt, max_new_tokens=9)
     warm.run()
     del warm
 
     eng = engine_mod.ServeEngine(cfg, params, spec, device=dev)
-    n_req, new_tokens = 16, 128
-    reqs = [eng.submit(rng.integers(0, cfg.vocab_size,
-                                    size=int(rng.integers(32, 129))),
-                       max_new_tokens=new_tokens) for _ in range(n_req)]
+    n_req, new_tokens = len(prompts), SERVE_NEW_TOKENS
+    reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
     torch.cuda.reset_peak_memory_stats()
     DA.launches = FA.launches = 0
     stats = eng.run()
@@ -779,6 +810,190 @@ def serve_phase(torch, np, cfg, api, engine_mod, DA, FA, dev="cuda"):
           and bool(torch.isfinite(logits).all()),
           f"full-width prefill logits {tuple(logits.shape)} not finite")
     stats["profile"] = profile_chunk(torch, np, cfg, params, engine_mod, spec)
+    return stats, launches
+
+
+# benchmarks/kv_prefix.py's pooled spec and its shared-header traffic
+KV_SPEC = dict(slots=8, max_len=288, prompt_len=256, chunk=8, kv_block=16,
+               suffix_len=64)
+KV_HEADER, KV_FEWSHOT, KV_REQUESTS, KV_NEW_TOKENS = 224, 16, 24, 32
+
+
+def kv_prefix_trace(np, vocab, n=KV_REQUESTS, seed=0):
+    """Shared-header prompts: one of 2 tiers' 224-token system header (14
+    blocks of 16), on half the requests one of 2 16-token few-shot
+    preambles, then a random tail of 8-32 tokens cut so that the prompt
+    fits ``prompt_len`` (256; with a preamble the tail is 8-16 tokens)."""
+    rng = np.random.default_rng(seed)
+    headers = [rng.integers(0, vocab, KV_HEADER) for _ in range(2)]
+    shots = [rng.integers(0, vocab, KV_FEWSHOT) for _ in range(2)]
+    out = []
+    for i in range(n):
+        head = [headers[int(rng.integers(2))]]
+        if i % 2:
+            head.append(shots[int(rng.integers(2))])
+        room = KV_SPEC["prompt_len"] - sum(len(h) for h in head)
+        tail = rng.integers(0, vocab, int(rng.integers(8, min(32, room) + 1)))
+        out.append(np.concatenate(head + [tail]))
+    return out
+
+
+def _engine_run(torch, engine_mod, cfg, params, spec, prompts, new_tokens,
+                DA, FA, dev):
+    """Serve ``prompts`` on a fresh engine with the launch counters zeroed
+    just before ``run()`` and read just after: (engine, requests, stats,
+    launches)."""
+    eng = engine_mod.ServeEngine(cfg, params, spec, device=dev)
+    reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    torch.cuda.synchronize()
+    DA.launches = DA.launches_bt = FA.launches = 0
+    stats = eng.run()
+    launches = {"paged_decode_attention": DA.launches,
+                "paged_decode_attention_bt": DA.launches_bt,
+                "flash_attention": FA.launches}
+    check(stats["requests_done"] == len(prompts),
+          f"served {stats['requests_done']} of {len(prompts)} requests")
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == new_tokens
+              and all(0 <= t < cfg.vocab_size for t in r.out_tokens),
+              f"request {r.rid}: {len(r.out_tokens)} tokens of {new_tokens}"
+              f" or a token outside the vocabulary")
+    return eng, reqs, stats, launches
+
+
+def pooled_engine_phase(torch, np, cfg, api, engine_mod, DA, FA, dev="cuda"):
+    """Full-width olmo-1b in three engines on one shared-header trace (24
+    requests, 32 new tokens each): pooled with sharing
+    (``benchmarks/kv_prefix.py``'s spec), pooled with ``kv_share=False``,
+    and the dense spec of the same envelope.  Share and no-share streams
+    bitwise equal, ``kv_close`` leak-free for both, sharing cuts the
+    prefill proxy and shares tokens; the pooled runs launch row 1 (decode
+    over each chunk's gathered view) and never the flash kernel (their
+    prefill is the plain ``blocked_attention``).  One suffix-prefill
+    dispatch and one dense admission prefill are timed by CUDA events and
+    the suffix dispatch profiled."""
+    params = api.init_params(cfg, seed=0, device=dev)
+    specs = {"share": engine_mod.SliceSpec(**KV_SPEC),
+             "noshare": engine_mod.SliceSpec(**KV_SPEC, kv_share=False),
+             "dense": engine_mod.SliceSpec(
+                 **{k: v for k, v in KV_SPEC.items()
+                    if k not in ("kv_block", "suffix_len")})}
+    prompts = kv_prefix_trace(np, cfg.vocab_size)
+    warm = kv_prefix_trace(np, cfg.vocab_size, n=3, seed=1)
+    for spec in specs.values():              # cuBLAS handles, allocator
+        _engine_run(torch, engine_mod, cfg, params, spec, warm, 4, DA, FA,
+                    dev)[0].kv_close()
+    torch.cuda.reset_peak_memory_stats()
+    arms, streams = {}, {}
+    for name, spec in specs.items():
+        eng, reqs, stats, launches = _engine_run(
+            torch, engine_mod, cfg, params, spec, prompts, KV_NEW_TOKENS, DA,
+            FA, dev)
+        streams[name] = [list(r.out_tokens) for r in reqs]
+        stats.update(launches=launches, kv_stats=eng.kv_stats(),
+                     ms_decode_chunk=stats["p50_chunk_s"] * 1e3,
+                     prefill_dispatches=eng.prefill_flops_proxy
+                     // (spec.slots * (spec.suffix_len or spec.prompt_len)))
+        if spec.kv_block:
+            check(launches["paged_decode_attention"]
+                  >= cfg.num_layers * stats["decode_steps"]
+                  and launches["flash_attention"] == 0
+                  and launches["paged_decode_attention_bt"] == 0,
+                  f"pooled engine ({name}) launches {launches} for "
+                  f"{stats['decode_steps']} steps x {cfg.num_layers} layers")
+            eng.kv_close()               # raises if a block leaked
+            stats["blocks_leaked"] = eng.kvpool.stats()["allocated_blocks"]
+        arms[name] = stats
+        del eng, reqs
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(streams["share"] == streams["noshare"],
+          "pooled engine: sharing on and off served different tokens")
+    share, noshare = arms["share"]["kv_stats"], arms["noshare"]["kv_stats"]
+    check(share["prefill_flops_proxy"] < noshare["prefill_flops_proxy"]
+          and share["kv_shared_tokens"] > 0,
+          f"sharing did not cut the prefill proxy: {share} vs {noshare}")
+
+    # one suffix-prefill dispatch at the engine's shape (rows resuming
+    # after a shared header) and one dense admission prefill, on the card
+    B, Tc, bs = KV_SPEC["slots"], KV_SPEC["suffix_len"], KV_SPEC["kv_block"]
+    nb = KV_SPEC["max_len"] // bs
+    pool = api.init_kv_pool(cfg, 2 * B * nb, bs, device=dev)
+    tables = torch.arange(B * nb, dtype=torch.int32, device=dev).reshape(B,
+                                                                         nb)
+    g = torch.Generator(device=dev).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (B, Tc), generator=g, device=dev)
+    start = np.full((B,), KV_HEADER, np.int32)
+    valid = np.full((B,), 24, np.int32)
+    suffix = lambda i: api.prefill_suffix(cfg, params, pool, toks, start,
+                                          valid, tables)
+    dense_toks = torch.randint(0, cfg.vocab_size, (B, KV_SPEC["prompt_len"]),
+                               generator=g, device=dev)
+    dense = lambda i: api.prefill(cfg, params, {"tokens": dense_toks},
+                                  max_len=KV_SPEC["max_len"])
+    DA.launches = FA.launches = 0
+    lg, _ = suffix(0)
+    check(tuple(lg.shape) == (B, cfg.vocab_size)
+          and bool(torch.isfinite(lg).all()) and FA.launches == 0,
+          "suffix prefill: logits not finite or a kernel launched")
+    ms = {"suffix_prefill": cuda_ms(torch, suffix, 1, iters=10),
+          "dense_prefill": cuda_ms(torch, dense, 1, iters=10)}
+    arms["share"]["ms_prefill_dispatch"] = ms["suffix_prefill"]
+    arms["noshare"]["ms_prefill_dispatch"] = ms["suffix_prefill"]
+    arms["dense"]["ms_prefill_dispatch"] = ms["dense_prefill"]
+    out = {"arms": arms, "requests": len(prompts),
+           "prompt_lens": [len(p) for p in prompts],
+           "bitwise_share_noshare": True, "peak_mem_gb": peak,
+           "dense_equals_pooled_streams": streams["dense"] == streams["share"],
+           "suffix_prefill_profile": profile_busy(torch, lambda: suffix(0))}
+    return out, {n: a["launches"] for n, a in arms.items()}
+
+
+def int8_engine_phase(torch, np, cfg, api, engine_mod, QU, DA, FA,
+                      dev="cuda"):
+    """Full-width olmo-1b with int8 weights (``SliceSpec(quant="int8")``)
+    on the serve phase's 16 requests, counted: rows 1 and 2 launched; then
+    an engine on ``dequantize_params`` of the same quantised tree serves
+    the same tokens, bit for bit.  Weight storage bytes against the bf16
+    tree's, and the device time a decode step of each engine takes (the
+    int8 engine dequantises every weight at its use)."""
+    params = api.init_params(cfg, seed=0, device=dev)
+    spec = engine_mod.SliceSpec(**SERVE_SPEC, quant="int8")
+    warm_prompt, prompts = serve_trace(np, cfg.vocab_size)
+    _engine_run(torch, engine_mod, cfg, params, spec, [warm_prompt], 9, DA,
+                FA, dev)
+    torch.cuda.reset_peak_memory_stats()
+    eng, reqs, stats, launches = _engine_run(
+        torch, engine_mod, cfg, params, spec, prompts, SERVE_NEW_TOKENS, DA,
+        FA, dev)
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["paged_decode_attention"]
+          >= cfg.num_layers * stats["decode_steps"]
+          and launches["flash_attention"] >= cfg.num_layers,
+          f"int8 engine launches {launches}")
+    int8_bytes = eng.weight_stream_bytes()
+    bf16_bytes = QU.storage_bytes(params)
+    ratio = int8_bytes / bf16_bytes
+    check(0.5 < ratio < 0.53, f"int8 weight bytes {int8_bytes} are "
+                              f"{ratio:.4f} of bf16's {bf16_bytes}")
+    mat = QU.dequantize_params(eng.params)
+    prof = profile_chunk(torch, np, cfg, params, engine_mod, spec)
+    del params
+    dense_spec = engine_mod.SliceSpec(**SERVE_SPEC)
+    _, mreqs, mstats, _ = _engine_run(
+        torch, engine_mod, cfg, mat, dense_spec, prompts, SERVE_NEW_TOKENS,
+        DA, FA, dev)
+    check([r.out_tokens for r in reqs] == [r.out_tokens for r in mreqs],
+          "int8 engine and its dequantised tree served different tokens")
+    mprof = profile_chunk(torch, np, cfg, mat, engine_mod, dense_spec)
+    if "device_busy_ms" in prof and "device_busy_ms" in mprof:
+        stats["dequant_device_ms_per_step"] = (
+            prof["device_busy_ms"] - mprof["device_busy_ms"]) / spec.chunk
+    stats.update(profile=prof, dequantized_profile=mprof)
+    stats.update(launches=launches, weight_stream_bytes=int8_bytes,
+                 bf16_weight_stream_bytes=bf16_bytes,
+                 weight_bytes_ratio=ratio, bitwise_dequantized=True,
+                 dequantized_tokens_per_s=mstats["tokens_per_s"],
+                 dequantized_mean_ttft_s=mstats["mean_ttft_s"])
     return stats, launches
 
 
@@ -2063,6 +2278,17 @@ def main(argv=None):
     log("pooled decode:", json.dumps(pool_stats))
     gc.collect()                    # its weights and pools
     torch.cuda.empty_cache()
+    kv_engine, kv_launches = pooled_engine_phase(
+        torch, np, registry.get_config("olmo-1b"), api, engine_mod, DA, FA)
+    log("pooled engine:", json.dumps(kv_engine))
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_engine, int8_launches = int8_engine_phase(
+        torch, np, registry.get_config("olmo-1b"), api, engine_mod, QU, DA,
+        FA)
+    log("int8 engine:", json.dumps(int8_engine))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     dlrm_kern, dlrm_stats, dlrm_launches, int8 = dlrm_phases(
         torch, F, registry, api, DL, ShapeConfig, FL, EG, EL, ES, QU, REF,
@@ -2106,8 +2332,13 @@ def main(argv=None):
     log("dlrm training, per-table route:", json.dumps(per_table))
 
     decode["launches"] = launches["paged_decode_attention"]
+    # the engine paths beside the serve phase's: each counted on its own
+    decode["launches_pooled_engine"] = kv_launches["share"][
+        "paged_decode_attention"]
+    decode["launches_int8_engine"] = int8_launches["paged_decode_attention"]
     pooled["bt"]["launches"] = pool_launches["paged_decode_attention_bt"]
     prefill["launches"] = launches["flash_attention"]
+    prefill["launches_int8_engine"] = int8_launches["flash_attention"]
     fused, gather = (dlrm_kern[DLRM_BATCH][n]
                      for n in ("fused_lookup", "embedding_gather"))
     fused["launches"] = dlrm_launches["fused_lookup"]
@@ -2123,7 +2354,8 @@ def main(argv=None):
     qlookup = dict(int8[DLRM_BATCH], launches=int8["launches"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    more = ("launches_hot", "launches_keys")
+    more = ("launches_hot", "launches_keys", "launches_pooled_engine",
+            "launches_int8_engine")
     kernels = {"kernels": [{k: kern[k] for k in keys}
                            | {k: kern[k] for k in more if k in kern}
                            for kern in (decode, pooled["q8"], pooled["bt"],
@@ -2140,6 +2372,7 @@ def main(argv=None):
         Path(args.out).write_text(json.dumps(
             dict(card=card, serve=stats, reference_worst=worst,
                  pooled_kernels=pooled, pooled_decode=pool_stats,
+                 pooled_engine=kv_engine, int8_engine=int8_engine,
                  build_s=build.build_seconds, dlrm_scoring=dlrm_stats,
                  dlrm_kernels={str(b): v for b, v in dlrm_kern.items()},
                  dlrm_training=train_stats,

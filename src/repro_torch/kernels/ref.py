@@ -33,9 +33,13 @@ NEG_INF = -1e30
 
 def dequant(q: torch.Tensor, scale: torch.Tensor, tile: int) -> torch.Tensor:
     """int8 ``q`` (..., D) times its tile's scale (..., ceil(D / tile)) in
-    f32 (a partial last tile takes the last scale)."""
-    per_lane = scale.repeat_interleave(tile, dim=-1)[..., :q.shape[-1]]
-    return q.float() * per_lane
+    f32 (a partial last tile takes the last scale).  Each tile is scaled
+    through a broadcast, so no per-lane copy of the scales is made."""
+    D, nt = q.shape[-1], scale.shape[-1]
+    if nt * tile != D:                          # pad the partial last tile
+        q = F.pad(q, (0, nt * tile - D))
+    r = q.unflatten(-1, (nt, tile)).float() * scale[..., None]
+    return r.flatten(-2)[..., :D]
 
 
 def dequant_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -132,3 +132,12 @@ def init_kv_pool(cfg: ModelConfig, num_blocks: int, block_size: int, *,
     _family(cfg)
     return TF.init_kv_pool(cfg, num_blocks, block_size,
                            device=resolve_device(device))
+
+
+def prefill_suffix(cfg: ModelConfig, p, cache, tokens, start, valid, tables):
+    """Fixed-width suffix prefill over a pooled KV cache: rows resume at
+    logical position ``start`` with ``valid`` fresh tokens, KV lands in the
+    blocks named by ``tables`` (in place); see transformer.prefill_suffix.
+    Returns (logits (B, V) at each row's last valid position, cache)."""
+    _family(cfg)
+    return TF.prefill_suffix(cfg, p, cache, tokens, start, valid, tables)

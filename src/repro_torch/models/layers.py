@@ -8,8 +8,10 @@ Ports of ``repro/models/layers.py`` with the same cast points:
     on weights cast at use (``quant.cast``), bf16 out;
   * the SiLU-GLU product stays in bf16.
 
-Attention itself is not here: prefill and decode call the kernels through
-``kernels/ops.py`` (``models/transformer.py``).
+The prefill and decode attention are not here: they call the kernels
+through ``kernels/ops.py`` (``models/transformer.py``).  `blocked_attention`
+is the pooled suffix prefill's attention, plain torch as the reference's is
+plain jnp (``transformer.prefill_suffix``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import AttentionConfig, ModelConfig
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import quant as Q
 
 
@@ -108,6 +111,70 @@ def attention_out(p, o, dtype=torch.bfloat16):
     B, T, H, D = o.shape
     return torch.einsum("bthk,hkd->btd", o.to(dtype),
                         Q.cast(p["wo"], dtype).reshape(H, D, -1))
+
+
+# ---------------------------------------------------------------------------
+# Blocked online-softmax attention
+# ---------------------------------------------------------------------------
+
+def _mask_block(q_pos, kv_pos, window):
+    """(B, Tq, Tk) causal allow-mask; a kv position of -1 is never
+    allowed.  ``window``: None or tokens."""
+    allow = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :]
+                                         <= q_pos[:, :, None])
+    if window is not None:
+        allow &= (q_pos[:, :, None] - kv_pos[:, None, :]) < window
+    return allow
+
+
+def blocked_attention(q, k, v, q_pos, kv_pos, *, window=None,
+                      softcap: Optional[float] = None,
+                      scale: Optional[float] = None, kv_chunk: int = 1024):
+    """Causal online-softmax attention over KV chunks of ``kv_chunk`` lanes
+    (the reference's ``blocked_attention``, same cast points).
+
+    q (B, Tq, H, d); k, v (B, S, KH, d) (GQA: H % KH == 0); q_pos (B, Tq)
+    and kv_pos (B, S) int logical positions, kv_pos -1 for a lane that
+    holds nothing (it contributes exact zeros).  q * scale, k, the
+    probabilities and v are rounded to bf16 and their products summed in
+    f32 (bf16 products are exact in f32); scores, softmax and the running
+    sums are f32.  Returns (B, Tq, H, d) in q's dtype.
+    """
+    B, Tq, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    if scale is None:
+        scale = D ** -0.5
+    ck = min(kv_chunk, S)
+    if S % ck:
+        pad = ck - S % ck
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=-1)
+        S += pad
+    bf = torch.bfloat16
+    qr = (q.reshape(B, Tq, KH, G, D) * scale).to(bf).float()
+    m = torch.full((B, Tq, KH, G), NEG_INF, device=q.device)
+    l = torch.zeros((B, Tq, KH, G), device=q.device)
+    acc = torch.zeros((B, Tq, KH, G, D), device=q.device)
+    for c0 in range(0, S, ck):
+        kb = k[:, c0:c0 + ck].to(bf).float()
+        vb = v[:, c0:c0 + ck].to(bf).float()
+        s = torch.einsum("btkgd,bckd->btkgc", qr, kb)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        allow = _mask_block(q_pos, kv_pos[:, c0:c0 + ck],
+                            window)[:, :, None, None, :]
+        s = torch.where(allow, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None]) * allow
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "btkgc,bckd->btkgd", p.to(bf).float(), vb)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, Tq, H, D).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,16 @@
-"""Mixed-precision choke point of the port (``repro/models/quant.py``
-``QTensor``, ``quantize``, ``cast``, ``take``, ``quantize_kv`` and
-``dequantize_kv``).
+"""Mixed-precision choke point of the port (``repro/models/quant.py``:
+``QTensor``, ``quantize``, ``cast``, ``take``,
+``quantize_params`` / ``dequantize_params`` / ``storage_bytes``,
+``quantize_kv`` and ``dequantize_kv``).
 
 The JAX package keeps f32 params and casts each weight to bf16 where it is
 used (`cast`, `take`).  `QTensor` / `quantize` are its symmetric int8
 storage, one f32 scale per tile of the last axis, bitwise the reference's.
+`quantize_params` swaps the eligible matmul and embedding weights of a
+param tree for `QTensor` leaves (``SliceSpec(quant="int8")``); `cast`
+dequantises such a leaf at its use and `take` gathers int8 rows and their
+scales before it dequantises them, so running the quantised tree gives
+bitwise what running `dequantize_params` of it gives.
 `quantize_row_space` is the layout the int8 fused lookup reads
 (``kernels/fused_lookup.fused_lookup_q``): tiles of 128 lanes from lane 0,
 the last one partial, so an unpadded (R, D) row space gets the scales the
@@ -13,12 +19,12 @@ reference gives its lanes inside the padded (R, 256) fused table.
 decode kernels stream), bitwise the reference's; the int8 decode kernels
 (``kernels/decode_attention``) widen each element on read.
 
-Not ported yet: ``quantize_params`` and the serving engine's
-``quant="int8"`` path (ROADMAP.md, queue 1, item 4).
 """
 from __future__ import annotations
 
 import dataclasses
+import re
+from typing import Any
 
 import torch
 
@@ -115,12 +121,84 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
     return dequant_rows(q, scale).to(dtype)
 
 
-def cast(w: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """Weight -> compute dtype (no copy when it already is)."""
+def cast(w: Any, dtype=torch.bfloat16) -> torch.Tensor:
+    """Weight -> compute dtype: a `QTensor` is dequantised, a tensor cast
+    (no copy when it already is)."""
+    if isinstance(w, QTensor):
+        return w.dequant(dtype)
     return w.to(dtype)
 
 
-def take(w: torch.Tensor, ids: torch.Tensor,
-         dtype=torch.bfloat16) -> torch.Tensor:
-    """Row gather for embedding tables, then cast."""
+def take(w: Any, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Row gather for embedding tables, then cast.  A `QTensor` gathers its
+    int8 rows and their scales and dequantises only those, never the whole
+    table."""
+    if isinstance(w, QTensor):
+        return QTensor(w.q[ids], w.scale[ids], w.tile).dequant(dtype)
     return w[ids].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# int8 weight storage of a param tree
+# ---------------------------------------------------------------------------
+
+# Param-tree keys of the matmul and embedding weights that
+# ``layers.attention_qkv / attention_out / mlp_apply`` and
+# ``transformer.embed_tokens / unembed`` read through `cast` / `take`.
+# Everything else (norm scales, biases) stays full width.
+QUANT_KEYS = frozenset({"wq", "wk", "wv", "wo", "wg", "wu", "wi",
+                        "embed", "head"})
+_EXCLUDE = re.compile(r"(^|/)(moe|router|experts?)(/|$)")
+
+
+def _map(fn, tree, path=()):
+    """``fn(path, leaf)`` over nested dicts, lists and tuples, rebuilt in
+    the same nesting; ``path`` is the tuple of keys down to the leaf and a
+    `QTensor` is a leaf."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _path_str(path) -> str:
+    return "/".join(str(k) for k in path)
+
+
+def _eligible(path: str, leaf) -> bool:
+    if not isinstance(leaf, torch.Tensor):
+        return False
+    if leaf.ndim < 2 or _EXCLUDE.search(path):
+        return False
+    return path.rsplit("/", 1)[-1] in QUANT_KEYS
+
+
+def quantize_params(cfg, params, tile: int = DEFAULT_TILE):
+    """Swap the eligible matmul and embedding weights for int8 `QTensor`
+    storage (the tree's paths unchanged): ``POLICY_INT8`` of the
+    reference's ``quantize_params``."""
+
+    def one(path, leaf):
+        if _eligible(_path_str(path), leaf):
+            return quantize(leaf, tile)
+        return leaf
+
+    return _map(one, params)
+
+
+def dequantize_params(params, dtype=torch.bfloat16):
+    """Every `QTensor` leaf at full width: running this tree gives what
+    running the quantised one gives, bit for bit."""
+    return _map(lambda _, x: (x.dequant(dtype) if isinstance(x, QTensor)
+                              else x), params)
+
+
+def storage_bytes(tree) -> int:
+    """Weight storage in bytes (``QTensor``: int8 values plus f32 scales)."""
+    sizes = []
+    _map(lambda _, x: sizes.append(
+        x.nbytes if isinstance(x, QTensor)
+        else x.numel() * x.element_size()), tree)
+    return int(sum(sizes))

@@ -1,5 +1,6 @@
 """Dense decoder stack of the port: init, prefill, paged decode, decode_n,
-over a per-slot KV cache or a pooled block-table one (`init_kv_pool`).
+over a per-slot KV cache or a pooled block-table one (`init_kv_pool`,
+`prefill_suffix`).
 
 Ports of ``repro/models/transformer.py`` for the dense family.  JAX scans a
 stacked layer body; here a Python loop walks the same stacked params
@@ -11,7 +12,9 @@ Attention goes through ``kernels/ops.py``: the CUDA kernels on the card,
 their plain versions on the CPU.  The JAX prefill computes attention with
 ``layers.blocked_attention`` (plain jnp); the port runs the flash kernel in
 its place, so prefill logits agree with JAX within bf16 tolerance, not
-bitwise.
+bitwise.  The pooled suffix prefill (`prefill_suffix`) keeps the
+reference's ``blocked_attention`` (plain torch, ``layers``): the flash
+kernel has no query offset and no masked KV lanes.
 
 Numerics kept from the reference, where they are easy to lose:
   * the residual stream is bf16 (``embed_tokens``);
@@ -72,9 +75,12 @@ def _windows(cfg: ModelConfig):
 
 
 def _layer(tree, l: int):
-    """Layer ``l`` of a stacked param tree (empty dicts stay empty)."""
+    """Layer ``l`` of a stacked param tree (empty dicts stay empty; an int8
+    `quant.QTensor` leaf gives layer ``l`` of its values and scales)."""
     if isinstance(tree, dict):
         return {k: _layer(v, l) for k, v in tree.items()}
+    if isinstance(tree, Q.QTensor):
+        return Q.QTensor(tree.q[l], tree.scale[l], tree.tile)
     return tree[l]
 
 
@@ -385,6 +391,72 @@ def _write_back(pool: Cache, view: Cache, tables, lens0, budget,
     for x, y in ((pool.k, view.k), (pool.v, view.v)):
         _write_rows(x.flatten(1, 2), src, at, any_kept,
                     y[:, b_idx, rowc.reshape(-1)])
+
+
+def prefill_suffix(cfg: ModelConfig, p, cache: Cache, tokens, start, valid,
+                   tables) -> Tuple[torch.Tensor, Cache]:
+    """Fixed-width suffix prefill over a pooled KV cache (`init_kv_pool`).
+
+    tokens (B, T) int: row b holds the suffix tokens of logical positions
+    ``[start[b], start[b] + valid[b])``, left-aligned (lanes past ``valid``
+    are padding: their KV is computed and dropped); start (B,) int: the
+    logical position of ``tokens[:, 0]``; valid (B,) int: valid tokens of
+    the row this dispatch (0 = an idle row); tables (B, nb) int32: slot
+    block tables (an entry outside the pool marks an unadmitted slot).
+
+    Each layer first writes the fresh suffix KV into its pool rows (padding
+    lanes, idle rows and rows past the table go to a row outside the pool
+    and are dropped, `_pool_writes`), then gathers the slot's whole logical
+    view (nb * bs lanes: blocks of earlier dispatches or of a shared prefix,
+    and this chunk) and runs `layers.blocked_attention` with logical
+    positions; lanes at or past ``start + valid`` carry the kv position -1
+    and contribute exact zeros.  A lane's result does not depend on its
+    row in the dispatch or on how many lanes of the view are valid, so a
+    long suffix prefills in chained dispatches of one shape, at any offset,
+    with the same bits.  The pool is updated in place.
+
+    Returns (logits (B, V) f32 at each row's last valid position, cache).
+    """
+    _require_dense(cfg)
+    a = cfg.attention
+    dev = cache.k.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    start, valid = (torch.as_tensor(x, **i32) for x in (start, valid))
+    tables = torch.as_tensor(tables, **i32)
+    B, T = tokens.shape
+    NB, bs, KH, hd = cache.k.shape[1:]
+    nb = tables.shape[1]
+    W = nb * bs
+    x = embed_tokens(cfg, p, tokens)
+    lanes = torch.arange(T, **i32)[None, :]
+    positions = start[:, None] + lanes                          # (B, T)
+    # the slot's view: lanes at/after the suffix end hold nothing yet
+    view = torch.arange(W, **i32)[None, :]
+    kv_pos = torch.where(view < (start + valid)[:, None], view, -1)
+    gidx = ((tables.clamp(0, NB - 1).long() * bs)[:, :, None]
+            + torch.arange(bs, device=dev)[None, None]).reshape(-1)
+    blk = positions // bs
+    phys = tables.long().gather(1, blk.clamp(0, nb - 1).long())
+    dest = torch.where((lanes < valid[:, None]) & (blk < nb),
+                       phys * bs + positions % bs, NB * bs).reshape(-1)
+    src, at, any_kept = _pool_writes(dest, NB * bs)
+    for l, win in enumerate(_windows(cfg)):
+        lp = _layer(p["layers"], l)
+        h = L.apply_norm(cfg, lp["ln1"], x)
+        q, k, v = L.attention_qkv(lp["attn"], h, a, positions)
+        kf, vf = cache.k[l].flatten(0, 1), cache.v[l].flatten(0, 1)
+        _write_rows(kf, src, at, any_kept, k.reshape(B * T, KH, hd))
+        _write_rows(vf, src, at, any_kept, v.reshape(B * T, KH, hd))
+        o = L.blocked_attention(
+            q, kf[gidx].reshape(B, W, KH, hd), vf[gidx].reshape(B, W, KH, hd),
+            positions, kv_pos, window=win, softcap=a.logit_softcap,
+            scale=a.attn_scale, kv_chunk=max(W, 1024))
+        x = _layer_tail(cfg, lp, x, L.attention_out(lp["attn"], o))
+    x = L.apply_norm(cfg, p["final_norm"], x)
+    last = (valid - 1).clamp(0, T - 1).long()
+    x = x.gather(1, last[:, None, None].expand(B, 1, x.shape[-1]))
+    return unembed(cfg, p, x)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@
 ``Trainer(run).train(n)`` draws batch ``step`` from the synthetic
 ``Dataset`` (pure in (seed, step)), moves it to the device, runs
 ``launch/steps.make_train_step`` and logs the reference's metrics every
-``log_every`` steps.  Params and optimizer state are updated in place.
+``log_every`` steps into the ``train.metrics`` series of its
+``obs.Telemetry`` (`metrics_log` is a view of it), inside a ``train.step``
+span.  Params and optimizer state are updated in place.
 
 It runs on the card unless ``device="cpu"`` is given, and raises without
 one.  The DLRM family only, through the lookup route that
@@ -26,6 +28,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.data.synthetic import Dataset
 from repro_torch.launch import steps as STEPS
 from repro_torch.models import api
+from repro_torch.obs import Telemetry
 from repro_torch.optim import adam as OPT
 
 
@@ -52,11 +55,15 @@ class Trainer:
       device: where params, state and batches live (default: the card).
       accum_steps: optional gradient-accumulation microsteps.
       ckpt_dir: checkpoints, not ported (must be None).
+      obs: the `Telemetry` that holds the metric log (a private one by
+        default); obs_labels: the labels of its series and gauges.
     """
 
     def __init__(self, run: RunConfig, *, device="cuda",
                  accum_steps: Optional[int] = None,
-                 ckpt_dir: Optional[str] = None):
+                 ckpt_dir: Optional[str] = None,
+                 obs: Optional[Telemetry] = None,
+                 obs_labels: Optional[Dict[str, Any]] = None):
         if run.model.family != "dlrm":
             raise NotImplementedError(
                 f"training the {run.model.family!r} family is ROADMAP.md "
@@ -66,10 +73,19 @@ class Trainer:
         self.run = run
         self.device = api.resolve_device(device)
         self.dataset = Dataset(run.model, run.shape, seed=run.seed)
-        self.metrics_log: List[Dict[str, float]] = []
+        # the metric log is a Series of the registry; `metrics_log` views it
+        self.obs = obs if obs is not None else Telemetry()
+        self._obs_labels = dict(obs_labels or {})
+        self._series = self.obs.metrics.series("train.metrics",
+                                               **self._obs_labels)
         self.train_step = STEPS.make_train_step(
             run.model, run.shape, run.parallel, run.optimizer,
             accum_steps=accum_steps)
+
+    @property
+    def metrics_log(self) -> List[Dict[str, float]]:
+        """The logged metric dicts (the registry Series' samples, live)."""
+        return self._series.samples
 
     # -- state ------------------------------------------------------------------
 
@@ -116,9 +132,11 @@ class Trainer:
         step = state.step
         while step < num_steps:
             t_step = time.perf_counter()
-            batch = self._put_batch(step)
-            params, opt, metrics = self.train_step(state.params,
-                                                   state.opt_state, batch)
+            with self.obs.span("train.step", cat="train", track="train",
+                               step=step):
+                batch = self._put_batch(step)
+                params, opt, metrics = self.train_step(
+                    state.params, state.opt_state, batch)
             state = TrainerState(params, opt, step + 1)
             step += 1
             if on_step is not None:
@@ -126,5 +144,11 @@ class Trainer:
             if step % log_every == 0 or step == num_steps:
                 m = {k: float(v) for k, v in metrics.items()}
                 m.update(step=step, wall_s=round(time.monotonic() - t0, 2))
-                self.metrics_log.append(m)
+                self._series.append(m)
+                # the last step's payload bytes, as the reference's gauges
+                for k in ("wire_bytes", "wire_bytes_full",
+                          "wire_overhead_bytes"):
+                    if k in m:
+                        self.obs.metrics.gauge(
+                            f"train.{k}", **self._obs_labels).set(m[k])
         return state

@@ -297,10 +297,18 @@ def test_engine_needs_a_device_choice_without_cuda(model):
 
 @pytest.mark.parametrize("spec,item", [(dict(kv_block=16), "item 6"),
                                        (dict(quant="int8"), "item 4")])
-def test_unported_engine_paths_raise(model, spec, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TEngine(model["tcfg"], model["tp"], TSpec(**{**SPEC, **spec}),
-                device="cpu")
+def test_unported_engine_paths_raise(model, prompts, spec, item):
+    """The two engine paths that once raised (ROADMAP.md queue 1, ``item``:
+    the pooled prefix-shared KV cache and int8 weights) now serve: on the
+    CPU, one request gets its whole budget of in-vocabulary tokens, and
+    the pooled engine's audit finds every block back."""
+    eng = TEngine(model["tcfg"], model["tp"], TSpec(**{**SPEC, **spec}),
+                  device="cpu")
+    r = eng.submit(prompts[1], max_new_tokens=5)
+    assert eng.run()["requests_done"] == 1, item
+    assert r.done and len(r.out_tokens) == 5, item
+    assert all(0 <= t < model["tcfg"].vocab_size for t in r.out_tokens)
+    eng.kv_close()
 
 
 def test_cli_serves_reduced_on_cpu(capsys):
