@@ -136,6 +136,31 @@ each of which fails the run if it fails:
      ``ParallelConfig(emb_pipeline=False)`` on the same cut at B = 256, 2
      steps: one gather a table and one fused scatter a row space a step
      (counted), finite losses, params that move, peak < 72 GB.
+ 12. dense training — full-width olmo-1b (16 layers, d_model 2048, vocab
+     50304, tied; 1.18e9 f32 parameters from seed 0) through
+     ``repro_torch.cluster``: ``Supercomputer(device="cuda")``, an (8, 8, 8)
+     slice, ``Slice.train`` on ``ShapeConfig("train_2k", "train", 2048,
+     8)`` with ``ParallelConfig(remat="block", xent_chunk=256)`` and
+     ``OptimizerConfig(lr=3e-4, warmup_steps=5)`` (2 microbatches of 4 x
+     2048 tokens), 3 warm and 10 timed steps (one ``TrainSession.run`` a
+     step, synchronised): tokens/s, ms a step (median, spread), finite
+     losses that fall from the first, params that move, peak allocated
+     memory between the 18.8 GB of f32 params, gradient, m and v and 60 GB,
+     the idle share of one profiled step, and the chunked cross-entropy's
+     peak with and without its per-chunk recompute (bitwise equal).  Then a
+     checkpoint of the trained state (params, m, v: 14.1 GB on disk) saved
+     and restored into a fresh ``Trainer``, both timed, every leaf bitwise;
+     then ``Slice.serve`` of the trained params cast to bf16 on the serve
+     phase's 16 requests, rows 1 and 2 counted (both launched);
+ 13. fault drill — full width, 2 layers: one step twice on the same state,
+     remat on and off, and under ``torch.use_deterministic_algorithms``
+     (all three bitwise equal; an op PyTorch flags as nondeterministic
+     fails the run); a clean 12-step run on one
+     slice beside a run that loses a block at step 7 (checkpoints every 4:
+     a ``reconfigure`` event, a spare swapped in, step 4 restored); a run
+     preempted at step 5 (``Slice.request_preempt``) and resumed on a (4,
+     8, 8) slice.  Both interrupted runs end on the clean run's losses and
+     params, bit for bit.
 
 Prints, last: a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and
@@ -1636,9 +1661,10 @@ def dlrm_phases(torch, F, registry, api, DL, ShapeConfig, FL, EG, EL, ES,
 
 @contextlib.contextmanager
 def deterministic(torch):
-    """``torch.use_deterministic_algorithms`` on inside: the plain
-    scatter's ``index_add_`` then sorts its indices stably and sums each
-    row's duplicates in index order, the fused scatter's order."""
+    """``torch.use_deterministic_algorithms`` on inside (an op with no
+    deterministic form raises): the plain scatter's ``index_add_`` then
+    sorts its indices stably and sums each row's duplicates in index
+    order, the fused scatter's order."""
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
@@ -2186,6 +2212,350 @@ def per_table_train_phase(torch, cfg, ShapeConfig, RunConfig,
             "peak_mem_gb": peak / 1e9, "launches": launches}
 
 
+# dense training: olmo-1b as published, one cell of train_2k on one card
+DENSE_SHAPE = ("train_2k", "train", 2048, 8)       # max_seq_len x 8 rows
+DENSE_XENT_CHUNK = 256
+DENSE_WARM, DENSE_TIMED = 3, 10
+# f32 params, gradient, m and v of 1.18e9 parameters are 18.8 GB; with the
+# accumulator of the second microbatch, one recomputed layer and a chunk
+# of logits the step stays far under this
+DENSE_PEAK_LIMIT = 60e9
+# the fault drill: full width, depth cut to 2 layers (a checkpoint of
+# params, m and v is 2.85 GB instead of 14.1 GB)
+DRILL_LAYERS = 2
+DRILL_STEPS, DRILL_CKPT_EVERY, DRILL_FAIL_AT, DRILL_PREEMPT_AT = 12, 4, 7, 5
+
+
+def _dense_run(cfg, RunConfig, ShapeConfig, ParallelConfig, OptimizerConfig):
+    return RunConfig(model=cfg, shape=ShapeConfig(*DENSE_SHAPE),
+                     parallel=ParallelConfig(remat="block",
+                                             xent_chunk=DENSE_XENT_CHUNK),
+                     optimizer=OptimizerConfig(lr=3e-4, warmup_steps=5))
+
+
+def _xent_kept(torch, STEPS, cfg, params, x, labels, chunk):
+    """The chunked cross-entropy summed without the per-chunk checkpoint:
+    every chunk's logits stay in the graph until the backward pass."""
+    B, T, _ = x.shape
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, T, chunk):
+        tot = tot + STEPS._chunk_xent_sum(cfg, params, x[:, c0:c0 + chunk],
+                                          labels[:, c0:c0 + chunk])
+    return tot / (B * T)
+
+
+def xent_memory(torch, cfg, api, STEPS, params, batch):
+    """Peak memory of the chunked cross-entropy's forward and backward on
+    one microbatch's final hidden states, with the loss's per-chunk
+    recompute and with every chunk's logits kept: (peak GB over the
+    inputs, the same kept), bitwise equal losses and gradients checked."""
+    with torch.no_grad():
+        x, _ = api.forward(cfg, params, {"tokens": batch["tokens"]},
+                           return_hidden=True)
+    out, res = {}, []
+    for recompute in (True, False):
+        xv = x.detach().clone().requires_grad_(True)
+        emb = params["embed"].detach().requires_grad_(True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if recompute:
+            loss = STEPS._xent_chunked(cfg, {"embed": emb}, xv,
+                                       batch["labels"], DENSE_XENT_CHUNK)
+        else:
+            loss = _xent_kept(torch, STEPS, cfg, {"embed": emb}, xv,
+                              batch["labels"], DENSE_XENT_CHUNK)
+        grads = torch.autograd.grad(loss, [xv, emb])
+        torch.cuda.synchronize()
+        out["recompute" if recompute else "kept"] = (
+            torch.cuda.max_memory_allocated() - base) / 1e9
+        res.append((loss.detach(),) + tuple(grads))
+        del xv, emb, loss, grads
+    check(all(torch.equal(a, b) for a, b in zip(*res)),
+          "chunked cross-entropy: recompute changed the loss or gradients")
+    del res
+    return out
+
+
+def dense_train_phase(torch, np, cfg, CL, CKPT, RunConfig, ShapeConfig,
+                      ParallelConfig, OptimizerConfig, Trainer, STEPS, OPT,
+                      api, engine_mod, DA, FA, dev="cuda"):
+    """Full-width olmo-1b through ``repro_torch.cluster``: ``Slice.train``
+    for 3 warm and 10 timed steps of train_2k (2 microbatches of 4 x 2048
+    tokens, remat per layer, the cross-entropy in chunks of 256), one
+    profiled step, the cross-entropy's memory with and without its
+    per-chunk recompute, a checkpoint of the trained state saved and
+    restored into a fresh ``Trainer`` (every leaf bitwise), then
+    ``Slice.serve`` of the trained params cast to bf16 on the serve phase's
+    16 requests, rows 1 and 2 counted."""
+    import shutil
+    import tempfile
+    run = _dense_run(cfg, RunConfig, ShapeConfig, ParallelConfig,
+                     OptimizerConfig)
+    accum = STEPS.pick_accum_steps(cfg, run.shape,
+                                   xent_chunk=run.parallel.xent_chunk)
+    check(accum == 2, f"dense training: {accum} microbatches, want 2")
+    sc = CL.Supercomputer(device=dev)
+    sl = sc.allocate((8, 8, 8))
+    sess = sl.train(run)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = sess.trainer.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    static = 4 * 4 * n_params               # f32 params, gradient, m, v
+    probes = [("embed", state.params["embed"][:1024]),
+              ("wq", state.params["layers"]["attn"]["wq"][0, :64]),
+              ("wo_mlp", state.params["layers"]["mlp"]["wo"][-1, :64])]
+    before = [t.clone() for _, t in probes]
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for i in range(DENSE_WARM + DENSE_TIMED):
+        t0 = time.perf_counter()
+        sess.run(i + 1, state=state if i == 0 else None, log_every=1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    state = sess.state
+    losses = [m["loss"] for m in sess.metrics_log]
+    check(len(losses) == DENSE_WARM + DENSE_TIMED
+          and all(math.isfinite(x) for x in losses),
+          f"dense training: losses {losses}")
+    check(losses[-1] < losses[0], f"dense training: the loss did not fall "
+                                  f"from its first value: {losses}")
+    moved = [not torch.equal(a, b) and bool(torch.isfinite(b).all())
+             for a, (_, b) in zip(before, probes)]
+    check(all(moved), f"dense training: params moved {moved}")
+    check(static < peak < DENSE_PEAK_LIMIT,
+          f"dense training: peak allocated {peak / 1e9:.2f} GB outside "
+          f"({static / 1e9:.2f}, {DENSE_PEAK_LIMIT / 1e9:.0f}) GB")
+    prof = profile_busy(torch, lambda: sess.run(sess.state.step + 1,
+                                                log_every=1), top=25)
+    state = sess.state
+    timed = step_s[DENSE_WARM:]
+    tokens = run.shape.global_batch * run.shape.seq_len
+    med = sorted(timed)[len(timed) // 2]
+    # one more step, split: forward + backward of one microbatch, then Adam
+    mb = {k: torch.as_tensor(v[:run.shape.global_batch // accum], device=dev)
+          for k, v in sess.trainer.dataset.batch(state.step).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = STEPS.value_and_grad(cfg, run.parallel, state.params, mb)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, opt, _ = OPT.apply(run.optimizer, state.params, grads,
+                          state.opt_state)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del grads
+    state = type(state)(state.params, opt, state.step + 1)
+    split = {"fwd_bwd_microbatch_ms": (t1 - t0) * 1e3,
+             "adam_ms": (t2 - t1) * 1e3}
+    # the chunked cross-entropy's memory, on the same microbatch
+    xent_gb = xent_memory(torch, cfg, api, STEPS, state.params, mb)
+    del mb
+    # a checkpoint of the trained state, restored into a fresh Trainer
+    ckpt = tempfile.mkdtemp(prefix="dense_ckpt_")
+    try:
+        writer = Trainer(run, device=dev, ckpt_dir=ckpt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        writer.save(state)
+        save_s = time.perf_counter() - t0
+        disk = sum(f.stat().st_size for f in Path(ckpt).rglob("*.npz"))
+        t0 = time.perf_counter()
+        back = Trainer(run, device=dev, ckpt_dir=ckpt).restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    mine = CKPT.flatten({"params": state.params, "opt": state.opt_state})
+    theirs = CKPT.flatten({"params": back.params, "opt": back.opt_state})
+    check([k for k, _ in mine] == [k for k, _ in theirs]
+          and back.step == state.step
+          and all((a == b) if isinstance(a, int) else
+                  (b.device == a.device and torch.equal(a, b))
+                  for (_, a), (_, b) in zip(mine, theirs)),
+          "dense checkpoint: a restored leaf differs from the saved one")
+    del back, mine, theirs
+    # serve on the trained weights, in bf16
+    bf16 = OPT.tree_map(lambda t: t.to(torch.bfloat16), state.params)
+    stats_train = {"losses": losses, "params": n_params}
+    del state, probes, before
+    sess.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = engine_mod.SliceSpec(**SERVE_SPEC)
+    _, prompts = serve_trace(np, cfg.vocab_size)
+    serve = sl.serve(cfg, bf16, spec)
+    reqs = [serve.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
+            for p in prompts]
+    torch.cuda.synchronize()
+    DA.launches = FA.launches = 0
+    sstats = serve.run()
+    launches = {"paged_decode_attention": DA.launches,
+                "flash_attention": FA.launches}
+    check(sstats["requests_done"] == len(prompts)
+          and all(r.done and len(r.out_tokens) == SERVE_NEW_TOKENS
+                  for r in reqs),
+          f"serving the trained weights: {sstats['requests_done']} of "
+          f"{len(prompts)} requests")
+    check(all(v > 0 for v in launches.values()),
+          f"serving the trained weights: launches {launches}")
+    sl.free()
+    del bf16, serve
+    return dict(stats_train, **{
+        "shape": list(DENSE_SHAPE), "microbatches": accum,
+        "xent_chunk": DENSE_XENT_CHUNK, "remat": run.parallel.remat,
+        "steps_warm": DENSE_WARM, "steps_timed": DENSE_TIMED,
+        "ms_per_step": [t * 1e3 for t in step_s],
+        "median_ms_per_step": med * 1e3,
+        "spread_ms": [min(timed) * 1e3, max(timed) * 1e3],
+        "tokens_per_s": tokens * len(timed) / sum(timed),
+        "peak_mem_gb": peak / 1e9, "static_state_gb": static / 1e9,
+        "init_s": init_s, "profile_step": prof, "step_split": split,
+        "xent_peak_gb": xent_gb,
+        "ckpt_save_s": save_s, "ckpt_restore_s": restore_s,
+        "ckpt_disk_gb": disk / 1e9,
+        "serve": {k: sstats[k] for k in ("requests_done", "tokens",
+                                         "tokens_per_s", "mean_ttft_s",
+                                         "decode_steps")},
+        "launches": launches}), launches
+
+
+def _losses(sess):
+    return {m["step"]: m["loss"] for m in sess.metrics_log if "loss" in m}
+
+
+def step_bits(torch, cfg, run, STEPS, params, batch):
+    """Loss and gradients of one step, as a list of tensors."""
+    m, g = STEPS.value_and_grad(cfg, run.parallel, params, batch)
+    return [m["loss"]] + g
+
+
+def fault_drill_phase(torch, cfg, CL, RunConfig, ShapeConfig,
+                      ParallelConfig, OptimizerConfig, STEPS, OPT,
+                      dev="cuda"):
+    """The §2.3 drill at full width, depth cut to 2 layers, on one
+    ``Supercomputer``: first the step's determinism on the card (one step
+    twice on the same state, remat on and off, and under
+    ``torch.use_deterministic_algorithms``); then a clean 12-step run on one
+    slice and a run on another that loses a block at step 7 (checkpoints
+    every 4: a spare swapped in, step 4 restored); then a run preempted at
+    step 5 and resumed on a slice of another shape.  Both interrupted loss
+    curves and final params must be the clean run's, bit for bit."""
+    import dataclasses
+    import shutil
+    import tempfile
+    cfg = cfg.replace(num_layers=DRILL_LAYERS)
+    run = _dense_run(cfg, RunConfig, ShapeConfig, ParallelConfig,
+                     OptimizerConfig)
+    sc = CL.Supercomputer(device=dev)
+    out = {"layers": DRILL_LAYERS}
+    # -- determinism of one step on the card
+    probe = sc.allocate((4, 4, 4))
+    sess = probe.train(run)
+    state = sess.trainer.init_state()
+    batch = {k: torch.as_tensor(v[:run.shape.global_batch // 2], device=dev)
+             for k, v in sess.trainer.dataset.batch(0).items()}
+    a = step_bits(torch, cfg, run, STEPS, state.params, batch)
+    b = step_bits(torch, cfg, run, STEPS, state.params, batch)
+    out["same_step_twice_bitwise"] = all(torch.equal(x, y)
+                                         for x, y in zip(a, b))
+    del b
+    off = run.replace(parallel=dataclasses.replace(run.parallel,
+                                                   remat="none"))
+    c = step_bits(torch, cfg, off, STEPS, state.params, batch)
+    out["remat_on_equals_off_bitwise"] = all(torch.equal(x, y)
+                                             for x, y in zip(a, c))
+    del c
+    # an op PyTorch knows to be nondeterministic raises in here
+    with deterministic(torch):
+        d = step_bits(torch, cfg, run, STEPS, state.params, batch)
+    out["deterministic_algorithms_equal"] = all(torch.equal(x, y)
+                                                for x, y in zip(a, d))
+    del a, d, batch, state
+    probe.free()
+    check(out["same_step_twice_bitwise"] and
+          out["remat_on_equals_off_bitwise"] and
+          out["deterministic_algorithms_equal"],
+          f"fault drill: the step is not deterministic on the card: {out}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dirs = [tempfile.mkdtemp(prefix="drill_") for _ in range(2)]
+    try:
+        # -- a block fails at step 7; the clean run beside it
+        faulted, reference = sc.allocate((8, 8, 8)), sc.allocate((8, 8, 8))
+        t0 = time.perf_counter()
+        ref = reference.train(run, DRILL_STEPS, log_every=1)
+        torch.cuda.synchronize()
+        clean_s = time.perf_counter() - t0
+        failed_block = faulted.blocks[0]
+        t0 = time.perf_counter()
+        sess = faulted.train(run, DRILL_STEPS, ckpt_dir=dirs[0],
+                             ckpt_every=DRILL_CKPT_EVERY,
+                             fail_at=DRILL_FAIL_AT, log_every=1)
+        torch.cuda.synchronize()
+        drill_s = time.perf_counter() - t0
+        clean = _losses(ref)
+        kinds = [e.kind for e in sess.interruptions]
+        restarts = [m["step"] for m in sess.metrics_log if m.get("event")]
+        logged = [(m["step"], m["loss"]) for m in sess.metrics_log
+                  if "loss" in m]
+        check(len(clean) == DRILL_STEPS
+              and all(math.isfinite(x) for x in clean.values()),
+              f"fault drill: clean losses {clean}")
+        check(kinds == ["reconfigure"] and failed_block not in faulted.blocks
+              and failed_block not in sc.scheduler.healthy
+              and restarts == [DRILL_CKPT_EVERY],
+              f"fault drill: events {kinds}, restarts at {restarts}, "
+              f"blocks {faulted.blocks} (failed {failed_block})")
+        check(all(clean[s] == x for s, x in logged)
+              and _losses(sess) == clean,
+              f"fault drill: losses {logged} differ from the clean run's "
+              f"{clean}")
+        check(all(torch.equal(x, y) for x, y in
+                  zip(OPT.leaves(sess.params), OPT.leaves(ref.params))),
+              "fault drill: final params differ from the clean run's")
+        out.update(steps=DRILL_STEPS, ckpt_every=DRILL_CKPT_EVERY,
+                   fail_at=DRILL_FAIL_AT, restored_step=restarts[0],
+                   events=kinds, downtime_s=sess.stall_s,
+                   clean_losses=[clean[s] for s in sorted(clean)],
+                   clean_run_s=clean_s, drill_run_s=drill_s)
+        del sess
+        faulted.free()
+        gc.collect()
+        # -- preempted at step 5, resumed on a slice of another shape
+        first = sc.allocate((8, 8, 8))
+        sess = first.train(run, ckpt_dir=dirs[1],
+                           ckpt_every=DRILL_CKPT_EVERY)
+        sess.run(DRILL_PREEMPT_AT, log_every=1)
+        first.request_preempt()
+        sess.run(DRILL_STEPS, log_every=1)
+        check(sess.preempted and sess.state.step == DRILL_PREEMPT_AT,
+              f"preempt: stopped at {sess.state.step}, preempted "
+              f"{sess.preempted}")
+        first.free()
+        second = sc.allocate((4, 8, 8))
+        resumed = second.train(run, DRILL_STEPS, ckpt_dir=dirs[1],
+                               ckpt_every=DRILL_CKPT_EVERY, log_every=1)
+        curve = {**_losses(sess), **_losses(resumed)}
+        check(curve == clean, f"preempt/resume: losses {curve} differ from "
+                              f"the clean run's {clean}")
+        check(all(torch.equal(x, y) for x, y in
+                  zip(OPT.leaves(resumed.params), OPT.leaves(ref.params))),
+              "preempt/resume: final params differ from the clean run's")
+        out.update(preempt_at=DRILL_PREEMPT_AT, resumed_on=second.describe(),
+                   preempt_bitwise=True, drill_bitwise=True)
+        second.free()
+        reference.free()
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2214,6 +2584,7 @@ def main(argv=None):
     sys.path.insert(0, str(src))
     import numpy as np
     import torch.nn.functional as F
+    from repro_torch import cluster as CL
     from repro_torch.configs import registry
     from repro_torch.configs.base import (OptimizerConfig, ParallelConfig,
                                           RunConfig, ShapeConfig)
@@ -2236,6 +2607,7 @@ def main(argv=None):
     from repro_torch.models import transformer as TF
     from repro_torch.optim import adam as OPT
     from repro_torch.serve import engine as engine_mod
+    from repro_torch.train import checkpoint as CKPT
     from repro_torch.train.trainer import Trainer
 
     # the plain versions compute f32 products: keep TF32 out of them
@@ -2330,6 +2702,19 @@ def main(argv=None):
         torch, tcfg, ShapeConfig, RunConfig, ParallelConfig, OptimizerConfig,
         Trainer, FL, EG, FS)
     log("dlrm training, per-table route:", json.dumps(per_table))
+    gc.collect()                    # its 64 GB of state
+    torch.cuda.empty_cache()
+    dense, dense_launches = dense_train_phase(
+        torch, np, registry.get_config("olmo-1b"), CL, CKPT, RunConfig,
+        ShapeConfig, ParallelConfig, OptimizerConfig, Trainer, STEPS, OPT,
+        api, engine_mod, DA, FA)
+    log("dense training:", json.dumps(dense))
+    gc.collect()
+    torch.cuda.empty_cache()
+    drill = fault_drill_phase(
+        torch, registry.get_config("olmo-1b"), CL, RunConfig, ShapeConfig,
+        ParallelConfig, OptimizerConfig, STEPS, OPT)
+    log("fault drill:", json.dumps(drill))
 
     decode["launches"] = launches["paged_decode_attention"]
     # the engine paths beside the serve phase's: each counted on its own
@@ -2338,6 +2723,10 @@ def main(argv=None):
     decode["launches_int8_engine"] = int8_launches["paged_decode_attention"]
     pooled["bt"]["launches"] = pool_launches["paged_decode_attention_bt"]
     prefill["launches"] = launches["flash_attention"]
+    # the trained weights served after dense training
+    decode["launches_trained_serve"] = dense_launches[
+        "paged_decode_attention"]
+    prefill["launches_trained_serve"] = dense_launches["flash_attention"]
     prefill["launches_int8_engine"] = int8_launches["flash_attention"]
     fused, gather = (dlrm_kern[DLRM_BATCH][n]
                      for n in ("fused_lookup", "embedding_gather"))
@@ -2355,7 +2744,7 @@ def main(argv=None):
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     more = ("launches_hot", "launches_keys", "launches_pooled_engine",
-            "launches_int8_engine")
+            "launches_int8_engine", "launches_trained_serve")
     kernels = {"kernels": [{k: kern[k] for k in keys}
                            | {k: kern[k] for k in more if k in kern}
                            for kern in (decode, pooled["q8"], pooled["bt"],
@@ -2382,6 +2771,7 @@ def main(argv=None):
                  dedup_scatter=dedup,
                  int8_lookup={str(b): v for b, v in int8.items()},
                  per_table_training=per_table,
+                 dense_training=dense, fault_drill=drill,
                  **kernels), indent=2))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -175,13 +175,15 @@ class EmbeddingCollection:
 
     # -- params -------------------------------------------------------------
 
-    def init(self, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    def init(self, gen: torch.Generator,
+             device=None) -> Dict[str, torch.Tensor]:
         """Every row space, N(0, 1) * 0.01 in f32 (the reference's
-        distribution; other draws), on ``gen``'s device.  Each row space is
-        drawn and scaled in place, so a large one never exists twice."""
+        distribution; other draws), on ``device`` (default: ``gen``'s).
+        Each row space is drawn and scaled in place, so a large one never
+        exists twice."""
         def draw(rows, dim):
             t = torch.empty((rows, dim), dtype=torch.float32,
-                            device=gen.device)
+                            device=gen.device if device is None else device)
             return t.normal_(generator=gen).mul_(0.01)
 
         params = {g.name: draw(g.total_rows, dim)

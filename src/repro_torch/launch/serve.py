@@ -6,8 +6,9 @@ serves full-width olmo-1b on the card with random weights from ``--seed``;
 ``--reduced`` picks the smoke-test config and ``--device cpu`` the CPU
 (plain attention instead of the CUDA kernels).  ``--chunk`` sets the decode
 tokens advanced per host sync; ``--chunk 1`` gives identical greedy output.
-The cluster facade (``Supercomputer``) of ``repro.launch.serve`` is not
-ported yet (ROADMAP.md, queue 1, item 8).
+It builds the engine directly, the one ``repro_torch.cluster``'s
+``Slice.serve`` builds, where ``repro.launch.serve`` allocates a slice
+first.
 """
 import argparse
 import json

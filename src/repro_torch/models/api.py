@@ -1,7 +1,7 @@
 """Family-dispatching model API of the port (``repro/models/api.py``).
 
-The dense family serves (prefill, decode); the DLRM family scores
-(`init_params`, `forward`, `make_batch`).  Every other family, and every
+The dense family trains (`forward`) and serves (prefill, decode); the
+DLRM family scores and trains (`init_params`, `forward`, `make_batch`).  Every other family, and every
 entry point a family does not have yet, raises ``NotImplementedError``
 naming its ROADMAP.md item.  Entry points that create tensors take
 ``device=`` and default to the card: without CUDA and without
@@ -43,8 +43,9 @@ def _family(cfg: ModelConfig, *ok: str) -> None:
             "the DLRM scores through api.forward; it has no decoder")
     if cfg.family == "dense":
         raise NotImplementedError(
-            "the dense family's training forward and batches wait for "
-            "ROADMAP.md queue 1, items 5 and 7")
+            "api.make_batch of the dense family waits for ROADMAP.md queue "
+            "1, item 5; training draws its batches from "
+            "data.synthetic.Dataset")
     raise NotImplementedError(
         f"family {cfg.family!r} waits for ROADMAP.md queue 1, item 11")
 
@@ -53,24 +54,38 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                 dtype: Optional[torch.dtype] = None):
     """Random params from a ``torch.Generator`` seeded with ``seed``, on
     ``device``, in the JAX layout.  ``dtype``: the dense family's weights
-    (default bf16); a DLRM's params are f32, as the reference's.  (Weights
-    that must equal the JAX package's come over through
-    ``repro_torch.interop``.)"""
+    (default bf16 for serving; ``torch.float32`` for training, the
+    reference's f32 master weights, cast to bf16 at each use); a DLRM's
+    params are f32, as the reference's.  ``device="meta"`` gives the
+    shapes and dtypes only (`param_shapes`).  (Weights that must equal the
+    JAX package's come over through ``repro_torch.interop``.)"""
     _family(cfg, "dense", "dlrm")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # a meta tensor draws nothing: any generator will do
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(seed)
     if cfg.family == "dlrm":
         if dtype not in (None, torch.float32):
             raise ValueError(f"DLRM params are float32, not {dtype}")
-        return DL.init_params(cfg, gen)
+        return DL.init_params(cfg, gen, device=dev)
     return TF.init_params(cfg, gen, device=dev,
                           dtype=dtype or torch.bfloat16)
 
 
+def param_shapes(cfg: ModelConfig, dtype: Optional[torch.dtype] = None):
+    """`init_params`'s tree as ``meta`` tensors: shapes and dtypes, no
+    storage (what ``train.checkpoint.restore`` reads a checkpoint into)."""
+    return init_params(cfg, device="meta", dtype=dtype)
+
+
 def forward(cfg: ModelConfig, p, batch, **kw):
-    """DLRM: -> (logits (B,) f32, aux 0.0); ``fused=`` picks the lookup
-    route (see ``models/dlrm.forward``)."""
-    _family(cfg, "dlrm")
+    """Dense: -> (logits (B, T, V) f32, aux); ``remat=``, ``kv_chunk=``,
+    ``return_hidden=`` and ``attn_impl=`` as ``transformer.forward``.
+    DLRM: -> (logits (B,) f32, aux 0.0); ``fused=`` picks the lookup route
+    (see ``models/dlrm.forward``)."""
+    _family(cfg, "dense", "dlrm")
+    if cfg.family == "dense":
+        return TF.forward(cfg, p, batch, **kw)
     return DL.forward(cfg, p, batch, **kw)
 
 

@@ -37,16 +37,16 @@ def collection_for(cfg: ModelConfig, num_shards: int = 1
                                fused_storage=True)
 
 
-def _mlp_init(gen: torch.Generator, dims, in_dim):
+def _mlp_init(gen: torch.Generator, dims, in_dim, device):
     """Truncated normal on [-2, 2] / sqrt(fan_in) weights, zero biases."""
     params = []
     prev = in_dim
     for h in dims:
-        w = torch.empty((prev, h), dtype=torch.float32, device=gen.device)
+        w = torch.empty((prev, h), dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(w, a=-2.0, b=2.0, generator=gen)
         params.append({"w": w.div_(math.sqrt(prev)),
                        "b": torch.zeros((h,), dtype=torch.float32,
-                                        device=gen.device)})
+                                        device=device)})
         prev = h
     return params
 
@@ -61,16 +61,17 @@ def _mlp_apply(params, x, final_linear: bool = True):
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                num_shards: int = 1) -> Dict[str, Any]:
-    """f32 params on ``gen``'s device (other draws than the reference's,
-    same distributions)."""
+                num_shards: int = 1, *, device=None) -> Dict[str, Any]:
+    """f32 params on ``device`` (default: ``gen``'s; other draws than the
+    reference's, same distributions)."""
     d = cfg.dlrm
+    dev = gen.device if device is None else device
     coll = collection_for(cfg, num_shards)
     inter_dim = d.bottom_mlp[-1] + sum(t.dim for t in d.tables)
     return {
-        "tables": coll.init(gen),
-        "bottom": _mlp_init(gen, d.bottom_mlp, d.dense_features),
-        "top": _mlp_init(gen, d.top_mlp, inter_dim),
+        "tables": coll.init(gen, dev),
+        "bottom": _mlp_init(gen, d.bottom_mlp, d.dense_features, dev),
+        "top": _mlp_init(gen, d.top_mlp, inter_dim, dev),
     }
 
 

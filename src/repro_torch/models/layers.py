@@ -8,10 +8,11 @@ Ports of ``repro/models/layers.py`` with the same cast points:
     on weights cast at use (``quant.cast``), bf16 out;
   * the SiLU-GLU product stays in bf16.
 
-The prefill and decode attention are not here: they call the kernels
-through ``kernels/ops.py`` (``models/transformer.py``).  `blocked_attention`
-is the pooled suffix prefill's attention, plain torch as the reference's is
-plain jnp (``transformer.prefill_suffix``).
+The serving prefill and decode attention are not here: they call the
+kernels through ``kernels/ops.py`` (``models/transformer.py``).
+`blocked_attention` (and `blocked_attention_qchunked`) is the training
+forward's attention and the pooled suffix prefill's, plain torch as the
+reference's is plain jnp: the reference has no kernel with a backward.
 """
 from __future__ import annotations
 
@@ -117,53 +118,34 @@ def attention_out(p, o, dtype=torch.bfloat16):
 # Blocked online-softmax attention
 # ---------------------------------------------------------------------------
 
-def _mask_block(q_pos, kv_pos, window):
-    """(B, Tq, Tk) causal allow-mask; a kv position of -1 is never
-    allowed.  ``window``: None or tokens."""
-    allow = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :]
-                                         <= q_pos[:, :, None])
+def _mask_block(q_pos, kv_pos, causal, window):
+    """(B, Tq, Tk) allow-mask; a kv position of -1 is never allowed.
+    ``window``: None or tokens."""
+    allow = (kv_pos[:, None, :] >= 0).expand(-1, q_pos.shape[1], -1)
+    if causal:
+        allow = allow & (kv_pos[:, None, :] <= q_pos[:, :, None])
     if window is not None:
-        allow &= (q_pos[:, :, None] - kv_pos[:, None, :]) < window
+        allow = allow & ((q_pos[:, :, None] - kv_pos[:, None, :]) < window)
     return allow
 
 
-def blocked_attention(q, k, v, q_pos, kv_pos, *, window=None,
-                      softcap: Optional[float] = None,
-                      scale: Optional[float] = None, kv_chunk: int = 1024):
-    """Causal online-softmax attention over KV chunks of ``kv_chunk`` lanes
-    (the reference's ``blocked_attention``, same cast points).
-
-    q (B, Tq, H, d); k, v (B, S, KH, d) (GQA: H % KH == 0); q_pos (B, Tq)
-    and kv_pos (B, S) int logical positions, kv_pos -1 for a lane that
-    holds nothing (it contributes exact zeros).  q * scale, k, the
-    probabilities and v are rounded to bf16 and their products summed in
-    f32 (bf16 products are exact in f32); scores, softmax and the running
-    sums are f32.  Returns (B, Tq, H, d) in q's dtype.
-    """
-    B, Tq, H, D = q.shape
-    S, KH = k.shape[1], k.shape[2]
-    G = H // KH
-    if scale is None:
-        scale = D ** -0.5
-    ck = min(kv_chunk, S)
-    if S % ck:
-        pad = ck - S % ck
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
-        kv_pos = F.pad(kv_pos, (0, pad), value=-1)
-        S += pad
+def _online_softmax(qr, q_pos, k, v, kv_pos, starts, ck, *, causal, window,
+                    softcap):
+    """Online-softmax attention of ``qr`` (B, Tq, KH, G, D) f32 holding
+    bf16 values over the KV chunks that begin at ``starts``, in that order.
+    Returns the f32 (B, Tq, KH, G, D) output."""
+    B, Tq, KH, G, D = qr.shape
     bf = torch.bfloat16
-    qr = (q.reshape(B, Tq, KH, G, D) * scale).to(bf).float()
-    m = torch.full((B, Tq, KH, G), NEG_INF, device=q.device)
-    l = torch.zeros((B, Tq, KH, G), device=q.device)
-    acc = torch.zeros((B, Tq, KH, G, D), device=q.device)
-    for c0 in range(0, S, ck):
+    m = torch.full((B, Tq, KH, G), NEG_INF, device=qr.device)
+    l = torch.zeros((B, Tq, KH, G), device=qr.device)
+    acc = torch.zeros((B, Tq, KH, G, D), device=qr.device)
+    for c0 in starts:
         kb = k[:, c0:c0 + ck].to(bf).float()
         vb = v[:, c0:c0 + ck].to(bf).float()
         s = torch.einsum("btkgd,bckd->btkgc", qr, kb)
         if softcap is not None:
             s = softcap * torch.tanh(s / softcap)
-        allow = _mask_block(q_pos, kv_pos[:, c0:c0 + ck],
+        allow = _mask_block(q_pos, kv_pos[:, c0:c0 + ck], causal,
                             window)[:, :, None, None, :]
         s = torch.where(allow, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -173,8 +155,98 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, window=None,
         acc = acc * alpha[..., None] + torch.einsum(
             "btkgc,bckd->btkgd", p.to(bf).float(), vb)
         m = m_new
-    out = acc / l.clamp_min(1e-30)[..., None]
+    return acc / l.clamp_min(1e-30)[..., None]
+
+
+def blocked_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                      window=None, softcap: Optional[float] = None,
+                      scale: Optional[float] = None, kv_chunk: int = 1024):
+    """Online-softmax attention over KV chunks of ``kv_chunk`` lanes (the
+    reference's ``blocked_attention``, same cast points; differentiable).
+
+    q (B, Tq, H, d); k, v (B, S, KH, d) (GQA: H % KH == 0); q_pos (B, Tq)
+    and kv_pos (B, S) int logical positions, kv_pos -1 for a lane that
+    holds nothing (it contributes exact zeros).  q * scale, k, the
+    probabilities and v are rounded to bf16 and their products summed in
+    f32 (bf16 products are exact in f32); scores, softmax and the running
+    sums are f32.  Returns (B, Tq, H, d) in q's dtype.
+    """
+    B, Tq, H, D = q.shape
+    KH = k.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    S = k.shape[1]
+    ck = min(kv_chunk, S)
+    if S % ck:                          # pad with masked lanes
+        pad = ck - S % ck
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=-1)
+    qr = (q.reshape(B, Tq, KH, H // KH, D) * scale).to(torch.bfloat16).float()
+    out = _online_softmax(qr, q_pos, k, v, kv_pos, range(0, k.shape[1], ck),
+                          ck, causal=causal, window=window, softcap=softcap)
     return out.reshape(B, Tq, H, D).to(q.dtype)
+
+
+def blocked_attention_qchunked(q, k, v, q_pos, kv_pos, *,
+                               causal: bool = True,
+                               window: Optional[int] = None,
+                               softcap: Optional[float] = None,
+                               scale: Optional[float] = None,
+                               q_chunk: int = 2048, kv_chunk: int = 1024):
+    """`blocked_attention` with q chunked too, over only the reachable
+    (q-chunk, kv-chunk) pairs: causal masking skips the upper triangle and
+    a static ``window`` (an int or None) keeps the diagonal band.  Each q
+    chunk merges its kv chunks in ascending order, as the reference's scan
+    over its i-major pair list does.  Assumes the aligned layout of
+    training: q chunk i covers positions [i*cq, (i+1)*cq)."""
+    B, Tq, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    cq = min(q_chunk, Tq)
+    ck = min(kv_chunk, S)
+    assert Tq % cq == 0 and S % ck == 0, (Tq, cq, S, ck)
+    qr = (q.reshape(B, Tq, KH, H // KH, D) * scale).to(torch.bfloat16).float()
+    outs = []
+    for i in range(Tq // cq):
+        qlo, qhi = i * cq, (i + 1) * cq - 1
+        starts = [j * ck for j in range(S // ck)
+                  if not (causal and j * ck > qhi)
+                  and not (window is not None
+                           and qlo - ((j + 1) * ck - 1) >= window)]
+        outs.append(_online_softmax(
+            qr[:, qlo:qhi + 1], q_pos[:, qlo:qhi + 1], k, v, kv_pos, starts,
+            ck, causal=causal, window=window, softcap=softcap))
+    return torch.cat(outs, dim=1).reshape(B, Tq, H, D).to(q.dtype)
+
+
+def reference_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
+                        softcap=None, scale=None):
+    """Unblocked oracle for tests (materialises the full logits, f32)."""
+    B, Tq, H, D = q.shape
+    KH = k.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    qr = q.reshape(B, Tq, KH, H // KH, D).float() * scale
+    s = torch.einsum("btkgd,bskd->btkgs", qr, k.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    allow = _mask_block(q_pos, kv_pos, causal, window)[:, :, None, None, :]
+    p = torch.softmax(torch.where(allow, s, NEG_INF), dim=-1)
+    out = torch.einsum("btkgs,bskd->btkgd", p, v.float())
+    return out.reshape(B, Tq, H, D).to(q.dtype)
+
+
+def self_attention(p, x, a: AttentionConfig, positions, *,
+                   causal: bool = True, window=None, kv_chunk: int = 1024,
+                   dtype=torch.bfloat16):
+    """Projections, `blocked_attention` and the output projection."""
+    q, k, v = attention_qkv(p, x, a, positions, dtype=dtype)
+    o = blocked_attention(q, k, v, positions, positions, causal=causal,
+                          window=window, softcap=a.logit_softcap,
+                          scale=a.attn_scale, kv_chunk=kv_chunk)
+    return attention_out(p, o, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Dense decoder stack of the port: init, prefill, paged decode, decode_n,
-over a per-slot KV cache or a pooled block-table one (`init_kv_pool`,
-`prefill_suffix`).
+"""Dense decoder stack of the port: init, the training forward, prefill,
+paged decode, decode_n, over a per-slot KV cache or a pooled block-table
+one (`init_kv_pool`, `prefill_suffix`).
 
 Ports of ``repro/models/transformer.py`` for the dense family.  JAX scans a
 stacked layer body; here a Python loop walks the same stacked params
@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as OPS
@@ -270,6 +271,102 @@ def prefill(cfg: ModelConfig, p, batch: Dict[str, Any], *,
     cache.pos.fill_(T)
     x = L.apply_norm(cfg, p["final_norm"], x)
     return unembed(cfg, p, x[:, -1:, :])[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Forward (training / teacher-forced)
+# ---------------------------------------------------------------------------
+
+def attn_group_size(cfg: ModelConfig) -> int:
+    """Layers a group of the qchunked path: the local/global pattern
+    repeats every ``global_every`` layers, so groups of that size give every
+    position of a group a static window."""
+    a = cfg.attention
+    if (a and a.sliding_window and a.global_every > 0
+            and cfg.num_layers % a.global_every == 0):
+        return a.global_every
+    return 1
+
+
+def can_qchunk(cfg: ModelConfig) -> bool:
+    """qchunked attention needs static windows: no sliding windows, or a
+    local/global pattern that tiles the stack exactly."""
+    a = cfg.attention
+    if a is None or a.sliding_window is None or a.global_every == 0:
+        return True
+    return cfg.num_layers % a.global_every == 0
+
+
+def static_window_for(cfg: ModelConfig, idx_in_group: int, group: int):
+    a = cfg.attention
+    if a is None or a.sliding_window is None or a.global_every == 0:
+        return None
+    if group == 1:
+        return None
+    return None if idx_in_group == group - 1 else a.sliding_window
+
+
+def _dense_layer(cfg: ModelConfig, lp, x, positions, window, *,
+                 kv_chunk: int = 1024, attn_impl: str = "blocked"):
+    """One pre-norm layer over the whole sequence (the reference's
+    ``_dense_layer`` for the dense family): plain-torch attention,
+    differentiable."""
+    a = cfg.attention
+    h = L.apply_norm(cfg, lp["ln1"], x)
+    if attn_impl == "qchunked":
+        q, k, v = L.attention_qkv(lp["attn"], h, a, positions)
+        o = L.blocked_attention_qchunked(
+            q, k, v, positions, positions, window=window,
+            softcap=a.logit_softcap, scale=a.attn_scale, kv_chunk=kv_chunk)
+        h = L.attention_out(lp["attn"], o)
+    else:
+        h = L.self_attention(lp["attn"], h, a, positions, window=window,
+                             kv_chunk=kv_chunk)
+    return _layer_tail(cfg, lp, x, h)
+
+
+def forward(cfg: ModelConfig, p, batch: Dict[str, Any], *,
+            kv_chunk: int = 1024, remat: bool = False,
+            return_hidden: bool = False, attn_impl: str = "blocked"):
+    """Teacher-forced forward of the dense family -> (logits (B, T, V) f32,
+    aux 0.0), or (final hidden (B, T, D), aux) with ``return_hidden``.
+
+    ``attn_impl="qchunked"`` (where `can_qchunk`) walks the stack in groups
+    of `attn_group_size` layers with static windows, as the reference's
+    regrouped scan does.  ``remat`` recomputes each layer (each group) in
+    the backward pass (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint`` of the scan body): the same operations run again, so
+    the loss and the gradients keep their bits."""
+    _require_dense(cfg)
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    x = embed_tokens(cfg, p, tokens)
+    positions = torch.arange(T, device=tokens.device).expand(B, T)
+    n = cfg.num_layers
+    if attn_impl == "qchunked" and can_qchunk(cfg):
+        g = attn_group_size(cfg)
+        wins = [static_window_for(cfg, i % g, g) for i in range(n)]
+    else:
+        g, attn_impl = 1, "blocked"
+        wins = _windows(cfg)
+
+    def group(x, l0):
+        for l in range(l0, l0 + g):
+            x = _dense_layer(cfg, _layer(p["layers"], l), x, positions,
+                             wins[l], kv_chunk=kv_chunk, attn_impl=attn_impl)
+        return x
+
+    for l0 in range(0, n, g):
+        if remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(group, x, l0,
+                                                  use_reentrant=False)
+        else:
+            x = group(x, l0)
+    x = L.apply_norm(cfg, p["final_norm"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
+    return unembed(cfg, p, x), aux
 
 
 # ---------------------------------------------------------------------------

@@ -167,7 +167,7 @@ def test_api_family_guards():
         TAPI.prefill(tcfg, {}, {})
     dense = TREG.get_reduced("olmo-1b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TAPI.forward(dense, {}, {})
+        TAPI.forward(dense.replace(family="moe"), {}, {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TAPI.make_batch(dense, TShape("x", "train", 8, 2), device="cpu")
 

@@ -60,3 +60,25 @@ def test_source_imports_no_jax_or_repro(path):
 
 def test_scan_covers_the_port():
     assert len(SOURCES) >= 15 and (ROOT / "chip_smoke.py").exists()
+
+
+# the modules of the dense-training and cluster slice: the walk above
+# must reach each (a module it misses is a module the guard never checks)
+SLICE_4_MODULES = [
+    "repro_torch.cluster", "repro_torch.cluster.slices",
+    "repro_torch.cluster.straggler", "repro_torch.cluster.supercomputer",
+    "repro_torch.core", "repro_torch.core.autotopo",
+    "repro_torch.core.costmodel", "repro_torch.core.goodput",
+    "repro_torch.core.ocs", "repro_torch.core.scheduler",
+    "repro_torch.core.topology", "repro_torch.parallel",
+    "repro_torch.parallel.context", "repro_torch.train.checkpoint",
+    "repro_torch.launch.quickstart",
+]
+
+
+@pytest.mark.parametrize("module", SLICE_4_MODULES)
+def test_guard_walks_the_module(module):
+    assert module in _module_names()
+    path = PKG.joinpath(*module.split(".")[1:])
+    assert (path.with_suffix(".py") if path.with_suffix(".py").exists()
+            else path / "__init__.py") in SOURCES

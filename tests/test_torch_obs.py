@@ -236,5 +236,9 @@ def test_trainer_logs_into_the_registry():
     assert obs.metrics.value("train.wire_bytes", job="t0") \
         == tr.metrics_log[-1]["wire_bytes"]
     assert [s.args["step"] for s in obs.tracer.find("train.step")] == [0, 1]
-    with pytest.raises(NotImplementedError, match="items 7 and 8"):
-        tr.train(3, preempt_at=2)
+    # cooperative preemption: a fresh run stops at step 2 and logs it
+    state = tr.train(3, preempt_at=2)
+    assert tr.preempted and state.step == 2
+    assert tr.metrics_log[-1] == {"step": 2, "preempt": 1.0}
+    assert [e.args["step"] for e in
+            obs.tracer.find_events("train.preempt")] == [2]

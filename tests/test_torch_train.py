@@ -42,6 +42,7 @@ from repro_torch.configs.base import ShapeConfig as TShape
 from repro_torch.data.synthetic import Dataset as TDataset
 from repro_torch.launch import steps as TSTEPS
 from repro_torch.launch import train as TCLI
+from repro_torch.models import api as TAPI
 from repro_torch.models import dlrm as TDL
 from repro_torch.optim import adam as TOPT
 from repro_torch.train.trainer import Trainer, TrainerState
@@ -321,6 +322,56 @@ def test_cli_trains_reduced_dlrm0_on_cpu(capsys):
     assert all(np.isfinite(r["loss"]) and r["lr"] > 0 for r in rows)
 
 
+def _dlrm_run(dlrm):
+    return TRun(model=dlrm["tcfg"], shape=TShape("t", "train", 1, 16),
+                parallel=TPar(remat="none"),
+                optimizer=TOpt(lr=3e-3, warmup_steps=1))
+
+
+def _same_state(a: TrainerState, b: TrainerState):
+    assert a.step == b.step and a.opt_state.step == b.opt_state.step
+    for x, y in zip(TOPT.leaves((a.params, a.opt_state.mu, a.opt_state.nu)),
+                    TOPT.leaves((b.params, b.opt_state.mu, b.opt_state.nu))):
+        assert x.dtype == y.dtype and x.device == y.device
+        assert torch.equal(x, y)
+
+
+def test_dlrm_trainer_checkpoint_restores_bitwise(dlrm, tmp_path):
+    """3 steps into a checkpoint; a fresh Trainer restores it (through the
+    meta shapes of ``api.param_shapes``) with every leaf and the step
+    bitwise the trained state's, and goes on from there."""
+    run = _dlrm_run(dlrm)
+    tr = Trainer(run, device="cpu", ckpt_dir=str(tmp_path), ckpt_every=2)
+    st = tr.train(3, log_every=1)
+    got = Trainer(run, device="cpu", ckpt_dir=str(tmp_path)).restore()
+    _same_state(got, st)
+    meta = TOPT.leaves(TAPI.param_shapes(dlrm["tcfg"]))
+    assert [(x.device.type, x.shape, x.dtype) for x in meta] == \
+        [("meta", x.shape, x.dtype) for x in TOPT.leaves(st.params)]
+    again = Trainer(run, device="cpu", ckpt_dir=str(tmp_path))
+    assert again.train(4, log_every=1).step == 4
+    assert [m["step"] for m in again.metrics_log] == [4]
+
+
+def test_dlrm_preempt_and_resume_is_bitwise(dlrm, tmp_path):
+    """Preempted at step 2 (checkpointed), resumed by a fresh Trainer: the
+    loss curve and the final state are bitwise the uninterrupted run's."""
+    run = _dlrm_run(dlrm)
+    clean = Trainer(run, device="cpu")
+    cstate = clean.train(5, log_every=1)
+    first = Trainer(run, device="cpu", ckpt_dir=str(tmp_path),
+                    ckpt_every=100)
+    st = first.train(5, preempt_at=2, log_every=1)
+    assert first.preempted and st.step == 2
+    second = Trainer(run, device="cpu", ckpt_dir=str(tmp_path),
+                     ckpt_every=100)
+    rstate = second.train(5, log_every=1)
+    got = [m["loss"] for m in first.metrics_log + second.metrics_log
+           if "loss" in m]
+    assert got == [m["loss"] for m in clean.metrics_log]
+    _same_state(rstate, cstate)
+
+
 # -- what is not ported yet ----------------------------------------------------
 
 def test_unported_training_paths_name_their_items(dlrm):
@@ -328,21 +379,17 @@ def test_unported_training_paths_name_their_items(dlrm):
     with pytest.raises(NotImplementedError, match="item 12"):
         TSTEPS.make_train_step(run.model, run.shape,
                                TPar(grad_compression="int8"), TOpt())
-    dense = TREG.get_reduced("olmo-1b")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        TSTEPS.loss_fn(dense, {}, {})
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        Trainer(run.replace(model=dense), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Trainer(run, device="cpu", ckpt_dir="ckpt")
+    # the dense family trains since slice 4; the other families wait
+    moe = TREG.get_reduced("olmo-1b").replace(family="moe")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        TSTEPS.loss_fn(moe, {}, {})
+    with pytest.raises(NotImplementedError, match="item 11"):
+        Trainer(run.replace(model=moe), device="cpu")
+    # no checkpoint yet: restore finds none, save without ckpt_dir is a no-op
     tr = Trainer(run, device="cpu")
-    for kw in (dict(fail_at=1), dict(preempt_at=1), dict(scheduler=object())):
-        with pytest.raises(NotImplementedError, match="items 7 and 8"):
-            tr.train(2, **kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tr.save(None)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tr.restore()
+    assert tr.restore() is None
+    tr.save(None)
+    assert Trainer(run, device="cpu", ckpt_dir="ckpt").restore() is None
     with pytest.raises(NotImplementedError, match="item 7"):
         Trainer(run.replace(optimizer=TOpt(name="sgd")),
                 device="cpu").init_state()
