@@ -161,6 +161,34 @@ each of which fails the run if it fails:
      preempted at step 5 (``Slice.request_preempt``) and resumed on a (4,
      8, 8) slice.  Both interrupted runs end on the clean run's losses and
      params, bit for bit.
+ 14. fleet serving — ``examples/serve_fleet.py``'s scenario at full width
+     through ``repro_torch.fleet``: ``Supercomputer(num_blocks=3)``,
+     replicas of ``SliceSpec(slots=4, max_len=128, prompt_len=64,
+     chunk=8)`` on (4, 4, 4) slices sharing the serve phase's weights
+     (moved to the card once), ``least_eta`` routing, the example's
+     autoscaler, ``timing=0.05``; its bursty trace (seed 2, the model's
+     vocabulary, prompts of at most 12 tokens), a spare burnt at 2.15 and
+     the busiest replica's block failed at 2.2.  Rows 1 and 2 counted.
+     Every request accounted for, at least one scale-up and one drain +
+     scale-down, at least one migration and none truncated, every stream
+     equal to its prompt served alone by one engine of the same spec (a
+     difference only where the solo run's top-2 margin is under the bf16
+     tolerance), allocated memory after ``close()`` within 64 MB of
+     before.  Then ``uniform_burst(24, new_tokens=16, prompt_len=8)`` on 1
+     and 2 replicas with measured timing (reported: one card takes the
+     replicas in turns), and 2 pooled replicas (``kv_prefix``'s spec)
+     under ``prefix_affinity`` on the first 16 requests of a 2-second
+     shared-header trace (seed 0: it holds 10): prefix hits, no KV block
+     leaked;
+ 15. mixed tenancy — ``examples/mixed_cluster.py``'s scenario: the fleet
+     of phase 14 at ``timing=0.15``, priority 1, ``preempt_on_allocate``
+     on a 4-block machine, its diurnal trace (seed 5), beside an
+     ``ElasticTrainJob`` (priority 0, geometries 4x4x12 / 4x4x8 / 4x4x4)
+     training the drill's 2-layer cut on train_2k for 16 steps.  The
+     burst evicts it (allocated memory falls by its params, m and v
+     before the eviction's notification returns), it resumes at the
+     trough; its losses and final params equal an uninterrupted
+     ``Trainer`` run's, bit for bit; every request accounted for.
 
 Prints, last: a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and
@@ -2556,6 +2584,467 @@ def fault_drill_phase(torch, cfg, CL, RunConfig, ShapeConfig,
     return out
 
 
+# fleet serving: examples/serve_fleet.py's scenario at full width.  The
+# prompt window holds a prompt (<= 12) and every decoded token (<= 32), so
+# no migrated request is truncated; the vocabulary is the model's.
+FLEET_SPEC = dict(slots=4, max_len=128, prompt_len=64, chunk=8)
+FLEET_AUTOSCALE = dict(min_replicas=1, max_replicas=3, tick_s=0.05,
+                       cooldown_s=0.3, scale_up_backlog=3.0,
+                       scale_down_backlog=0.5, provision_s=0.1)
+FLEET_TRAFFIC = dict(duration_s=4.0, rate_rps=4.0, pattern="bursty",
+                     burst_x=10.0, burst_period_s=2.0, burst_len_s=0.5,
+                     new_tokens_choices=(8, 16, 32),
+                     new_tokens_weights=(0.5, 0.35, 0.15), prompt_len_max=12)
+FLEET_FAIL = [(2.15, "spare"), (2.2, "busiest")]
+FLEET_MEM_SLACK = 64 * 2 ** 20      # bytes: allocated after close vs before
+# benchmarks/fleet_serving.py scenario_scaling's burst, measured timing
+FLEET_MEASURED = dict(n=24, new_tokens=16, prompt_len=8)
+# the prefix-affinity arm: kv_prefix's pooled spec on 2 replicas
+FLEET_KV_SPEC = dict(slots=4, max_len=288, prompt_len=256, chunk=8,
+                     kv_block=16, suffix_len=64)
+FLEET_KV_TRAFFIC = dict(duration_s=2.0, rate_rps=8.0, header_len=224,
+                        new_tokens_choices=(16, 32),
+                        new_tokens_weights=(0.5, 0.5))
+FLEET_KV_REQUESTS = 16          # at most: the trace of seed 0 holds 10
+# mixed tenancy: examples/mixed_cluster.py's scenario; the trainer is the
+# drill's (full width, 2 layers, train_2k).  16 steps: 12 on 3 blocks, the
+# serving burst evicts it at t = 1.0, it resumes on 1 block at t = 1.5
+MIX_TRAFFIC = dict(duration_s=4.0, rate_rps=14.0, pattern="diurnal",
+                   trough_frac=0.1, diurnal_period_s=4.0,
+                   new_tokens_choices=(16, 32), new_tokens_weights=(0.5, 0.5),
+                   prompt_len_max=8)
+MIX_GEOMETRIES = ((4, 4, 12), (4, 4, 8), (4, 4, 4))
+MIX_TARGET_STEPS = 16
+
+
+def _mem(torch, dev):
+    """Allocated bytes on ``dev`` (0 on the CPU, where nothing counts)."""
+    if torch.device(dev).type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _conserved(reqs, completed, dropped, offered, what):
+    """Every request done with its full budget or reported dropped."""
+    check(completed + dropped == offered == len(reqs),
+          f"{what}: {completed} done + {dropped} dropped of {offered} "
+          f"offered, {len(reqs)} requests")
+    for r in reqs:
+        check(r.status in ("done", "dropped")
+              and (r.status != "done"
+                   or len(r.out_tokens) == r.max_new_tokens),
+              f"{what}: request {r.fid} is {r.status} with "
+              f"{len(r.out_tokens)} of {r.max_new_tokens} tokens")
+
+
+def _solo_margin(torch, np, cfg, api, params, spec, prompt, tokens, i, dev):
+    """Top-2 logit margin and the bf16 tolerance where the solo stream
+    ``tokens`` chose token ``i``: the prompt left-padded to the engine's
+    window, then ``tokens[:i]``, through one prefill."""
+    ctx = np.zeros((spec.prompt_len,), np.int64)
+    seq = np.asarray(prompt)[-spec.prompt_len:]
+    ctx[-len(seq):] = seq
+    ctx = np.concatenate([ctx, np.asarray(tokens[:i], np.int64)])
+    logits, _ = api.prefill(cfg, params,
+                            {"tokens": torch.as_tensor(ctx[None], device=dev)})
+    top = torch.topk(logits[0].float(), 2).values
+    return (float(top[0] - top[1]),
+            LOGIT_REL_TOL * float(logits.float().abs().max()))
+
+
+def fleet_kernel_cases(torch, DA, FA, REF, dev="cuda"):
+    """Rows 1 and 2 against their plain versions at the shapes the fleet
+    gives them: a replica's decode (4 slots, H = KH = 16, d = 128, S =
+    max_len 128; ragged lengths with 0 and S), the pooled arm's gathered
+    view (S = 288) and the admission and migration prefill (4 rows of T =
+    prompt_len 64).  Returns the worst error of each."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf = torch.bfloat16
+    B, H, KH, d = FLEET_SPEC["slots"], 16, 16, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    err_d = 0.0
+    for S, lens in ((FLEET_SPEC["max_len"], [0, 1, 65, 128]),
+                    (FLEET_SPEC["max_len"], [64, 77, 100, 127]),
+                    (FLEET_KV_SPEC["max_len"], [0, 240, 257, 288])):
+        a = (randn(B, H, d), randn(B, S, KH, d), randn(B, S, KH, d),
+             torch.tensor(lens, dtype=torch.int32, device=dev))
+        err_d = max(err_d, max_err(torch, DA.paged_decode_attention(*a),
+                                   REF.paged_decode_attention_ref(*a),
+                                   f"decode at the fleet's B{B} S{S} {lens}"))
+    T = FLEET_SPEC["prompt_len"]
+    a = (randn(B, H, T, d), randn(B, KH, T, d), randn(B, KH, T, d))
+    err_p = max_err(torch, FA.flash_attention(*a),
+                    REF.flash_attention_ref(*a),
+                    f"prefill at the fleet's B{B} T{T}")
+    return {"paged_decode_attention": err_d, "flash_attention": err_p}
+
+
+def fleet_phase(torch, np, cfg, api, CL, FLT, engine_mod, DA, FA, REF,
+                dev="cuda"):
+    """``examples/serve_fleet.py``'s scenario at full width through
+    ``repro_torch.fleet``: an autoscaled ``least_eta`` fleet of up to 3
+    replicas on a 3-block machine, a bursty trace, a spare burnt and the
+    busiest replica's block failed, the rows of the decode and prefill
+    kernels counted.  Every request is accounted for, scale-up, drain and
+    scale-down happen, migrated requests are not truncated, every stream
+    equals its prompt served alone (a difference only at a near tie), and
+    allocated memory after ``close()`` is what it was before.  Then the
+    measured arm (1 and 2 replicas, wall-clock chunks) and the
+    prefix-affinity arm (2 pooled replicas; hits, no block leaked).
+
+    The weights are the serve phase's (seed 0), handed to the service on
+    the host: it moves them to the card once and every replica shares
+    that tree.  Returns the phase's figures, the launches of rows 1 and 2
+    on its path, and the tree on the card."""
+    out = {}
+    t_phase = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        out["max_abs_err_at_fleet_shapes"] = fleet_kernel_cases(
+            torch, DA, FA, REF, dev)
+    host = _to(api.init_params(cfg, seed=0, device=dev), "cpu")
+    mem0 = _mem(torch, dev)
+    sc = CL.Supercomputer(num_blocks=3, device=dev)
+    spec = engine_mod.SliceSpec(**FLEET_SPEC)
+    svc = FLT.FleetService(
+        sc, cfg, host, spec, geometry=(4, 4, 4),
+        router=FLT.RouterConfig(policy="least_eta"),
+        autoscale=FLT.AutoscalerConfig(**FLEET_AUTOSCALE), timing=0.05)
+    params = svc.params
+    moved = list(_leaves(params))
+    check(all(t.device.type == sc.device.type for t in moved)
+          and (not on_card or not any(
+              a is b for a, b in zip(moved, _leaves(host)))),
+          "fleet: the service did not move the host tree to its device")
+    param_bytes = sum(t.numel() * t.element_size() for t in moved)
+    del host, moved
+    mem_built = _mem(torch, dev)
+
+    def one_tree(where):
+        check(all(r.session.engine.params is params for r in svc.replicas
+                  if r.session is not None),
+              f"fleet: a replica holds a weight tree of its own ({where})")
+
+    one_tree("built")
+    trace = FLT.generate(FLT.TrafficSpec(**FLEET_TRAFFIC,
+                                         vocab_size=cfg.vocab_size), seed=2)
+    _sync(torch, dev)
+    DA.launches = FA.launches = 0
+    t0 = time.perf_counter()
+    rep = svc.run(trace, fail_plan=FLEET_FAIL, settle_s=3.0)
+    _sync(torch, dev)
+    out["wall_s"] = time.perf_counter() - t0
+    launches = {"paged_decode_attention": DA.launches,
+                "flash_attention": FA.launches}
+    one_tree("after the run")
+    _conserved(trace, rep.completed, rep.dropped, rep.offered, "fleet")
+    drained = [ln for ln in rep.log if "(drained)" in ln]
+    check(rep.scale_ups >= 1 and rep.scale_downs >= 1 and drained,
+          f"fleet: {rep.scale_ups} scale-ups, {rep.scale_downs} "
+          f"scale-downs, {len(drained)} drained replicas freed")
+    check(rep.migrated >= 1 and rep.failures >= 1,
+          f"fleet: {rep.migrated} migrated, {rep.failures} failures")
+    check(all(s["truncated_migrations"] == 0 for s in rep.replica_stats),
+          f"fleet: truncated migrations {rep.replica_stats}")
+    out["report"] = rep.to_dict()
+    out["chunks_run"] = {s["rep_id"]: s["chunks_run"]
+                         for s in rep.replica_stats}
+    out["log"] = rep.log
+    mem_run = _mem(torch, dev)
+    svc.close()
+    mem1 = _mem(torch, dev)
+    # the moved tree stays (the solo runs and the other arms use it)
+    out["mem_gb"] = {"before_service": mem0 / 1e9,
+                     "service_built": mem_built / 1e9,
+                     "weights": param_bytes / 1e9, "after_run": mem_run / 1e9,
+                     "after_close": mem1 / 1e9}
+    check(abs(mem1 - mem0 - (param_bytes if on_card else 0))
+          <= FLEET_MEM_SLACK,
+          f"fleet: allocated {mem1 / 1e9:.4f} GB after close(), "
+          f"{mem0 / 1e9:.4f} GB before the service and "
+          f"{param_bytes / 1e9:.4f} GB of weights it moved")
+    # every stream against its prompt served alone by one engine
+    solo = engine_mod.ServeEngine(cfg, params, spec, device=dev)
+    t0 = time.perf_counter()
+    differ = []
+    for r in trace:
+        if r.status != "done":
+            continue
+        er = solo.submit(r.prompt, max_new_tokens=r.max_new_tokens)
+        solo.run()
+        got, want = list(r.out_tokens), list(er.out_tokens)
+        if got == want:
+            continue
+        i = next(k for k, (a, b) in enumerate(zip(got, want)) if a != b)
+        margin, tol = _solo_margin(torch, np, cfg, api, params, spec,
+                                   r.prompt, want, i, dev)
+        differ.append({"fid": r.fid, "migrations": r.migrations, "at": i,
+                       "fleet": got[i], "solo": want[i], "margin": margin,
+                       "tol": tol})
+        log(f"fleet: request {r.fid} ({r.migrations} migrations) parts "
+            f"from its solo stream at token {i}: top-2 margin "
+            f"{margin:.4f}, tolerance {tol:.4f}")
+        check(margin < tol, f"fleet: request {r.fid} differs from its solo "
+                            f"run at token {i}, margin {margin} >= {tol}")
+    del solo
+    out["solo_s"] = time.perf_counter() - t0
+    out["streams_differing"] = differ
+    out["launches"] = launches
+    if torch.device(dev).type == "cuda":
+        check(launches["paged_decode_attention"] > 0
+              and launches["flash_attention"] > 0,
+              f"fleet: kernels not launched on the path: {launches}")
+    # measured arm: wall-clock chunks, 1 then 2 replicas (one card takes
+    # the replicas in turns: the 2-replica figure models separate slices)
+    measured = {}
+    for n in (1, 2):
+        sc_m = CL.Supercomputer(num_blocks=3, device=dev)
+        svc_m = FLT.FleetService(sc_m, cfg, params, spec, geometry=(4, 4, 4),
+                                 initial_replicas=n, timing="measured")
+        svc_m.warmup()
+        burst = FLT.uniform_burst(FLEET_MEASURED["n"],
+                                  new_tokens=FLEET_MEASURED["new_tokens"],
+                                  prompt_len=FLEET_MEASURED["prompt_len"])
+        t0 = time.perf_counter()
+        rm = svc_m.run(burst)
+        wall = time.perf_counter() - t0
+        _conserved(burst, rm.completed, rm.dropped, rm.offered,
+                   f"measured arm, {n} replicas")
+        measured[n] = {"aggregate_tokens_per_s": rm.aggregate_tokens_per_s,
+                       "p50_ttft_s": rm.p50_ttft_s,
+                       "p95_ttft_s": rm.p95_ttft_s,
+                       "makespan_s": rm.makespan_s, "wall_s": wall}
+        svc_m.close()
+    out["measured"] = measured
+    # prefix affinity on 2 pooled replicas
+    sc_p = CL.Supercomputer(num_blocks=3, device=dev)
+    svc_p = FLT.FleetService(
+        sc_p, cfg, params, engine_mod.SliceSpec(**FLEET_KV_SPEC),
+        geometry=(4, 4, 4), initial_replicas=2,
+        router=FLT.RouterConfig(policy="prefix_affinity"), timing=0.05)
+    kv_trace = FLT.generate(FLT.TrafficSpec(**FLEET_KV_TRAFFIC,
+                                            vocab_size=cfg.vocab_size),
+                            seed=0)[:FLEET_KV_REQUESTS]
+    t0 = time.perf_counter()
+    rp = svc_p.run(kv_trace)
+    wall = time.perf_counter() - t0
+    _conserved(kv_trace, rp.completed, rp.dropped, rp.offered,
+               "prefix-affinity arm")
+    kv = {}
+    for r in svc_p.replicas:
+        eng = r.session.engine
+        eng.kvpool.check()
+        stats = eng.kv_stats()
+        eng.kv_close()                      # asserts every block came back
+        kv[r.rep_id] = dict(stats, leaked=eng.kvpool.stats()[
+            "allocated_blocks"])
+    check(svc_p.router.prefix_hits > 0
+          and all(v["leaked"] == 0 for v in kv.values()),
+          f"prefix-affinity arm: {svc_p.router.prefix_hits} hits, kv {kv}")
+    out["prefix_affinity"] = {"report": rp.to_dict(), "wall_s": wall,
+                              "prefix_hits": svc_p.router.prefix_hits,
+                              "prefix_misses": svc_p.router.prefix_misses,
+                              "kv": kv}
+    svc_p.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches, params
+
+
+@contextlib.contextmanager
+def _timing(torch, dev, into, patches):
+    """While the block runs, count the calls of each ``(cls, name,
+    label)`` in ``patches`` and add up their wall seconds (the card synced
+    after each) under ``into[label(self)]``; the methods are restored
+    after."""
+    saved = []
+    for cls, name, label in patches:
+        real = vars(cls)[name]
+
+        def timed(self, *a, _real=real, _label=label, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _real(self, *a, **kw)
+            finally:
+                _sync(torch, dev)
+                rec = into.setdefault(_label(self), {"calls": 0, "s": 0.0})
+                rec["calls"] += 1
+                rec["s"] += time.perf_counter() - t0
+        saved.append((cls, name, real))
+        setattr(cls, name, timed)
+    try:
+        yield into
+    finally:
+        for cls, name, real in saved:
+            setattr(cls, name, real)
+
+
+def tenancy_phase(torch, np, cfg, run, params, api, CL, FLT, Trainer, OPT,
+                  engine_mod, DA, FA, dev="cuda"):
+    """``examples/mixed_cluster.py``'s scenario: a priority-1 fleet of
+    full-width olmo-1b (``params``, on the card; timing 0.15,
+    ``preempt_on_allocate``) and an elastic training tenant (``run``: the
+    drill's 2-layer cut) on a 4-block machine under a diurnal trace.  The
+    serving burst evicts the trainer, which frees its state and resumes
+    at the trough; its losses and final params are the uninterrupted
+    run's, bit for bit, and every request is accounted for.  The wall
+    time is split by measurement: the training quanta, the checkpoint
+    saves (inside a quantum or not) and restores, and the replicas'
+    chunks and dispatches."""
+    import shutil
+    import tempfile
+    out = {}
+    t_phase = time.perf_counter()
+
+    class Probed(CL.ElasticTrainJob):
+        """Records allocated memory around each eviction, the bytes of
+        the state the job held (params, m and v), and the wall seconds of
+        its quanta."""
+        evictions = []
+        quanta_s = 0.0
+        in_quantum = False
+
+        def run_quantum(self, window_s, now=0.0):
+            t0 = time.perf_counter()
+            Probed.in_quantum = True
+            try:
+                n = super().run_quantum(window_s, now)
+            finally:
+                Probed.in_quantum = False
+            _sync(torch, dev)
+            Probed.quanta_s += time.perf_counter() - t0
+            return n
+
+        def _vacate(self, *, save, reason):
+            st = self.session.state if self.session is not None else None
+            held = 0 if st is None else sum(
+                t.numel() * t.element_size() for t in _leaves(
+                    [st.params, st.opt_state.mu, st.opt_state.nu]))
+            del st
+            before = _mem(torch, dev)
+            super()._vacate(save=save, reason=reason)
+            after = _mem(torch, dev)
+            self.evictions.append({"state_gb": held / 1e9,
+                                   "before_gb": before / 1e9,
+                                   "after_gb": after / 1e9,
+                                   "held": held, "freed": before - after})
+
+    def on_machine_event(sl, ev):
+        # published once the eviction's notification has returned, before
+        # the requester's allocation does
+        if ev.kind == "preempt" and Probed.evictions \
+                and "published_gb" not in Probed.evictions[-1]:
+            e = Probed.evictions[-1]
+            now = _mem(torch, dev)
+            e["published_gb"] = now / 1e9
+            e["freed_published"] = e["before_gb"] * 1e9 - now
+
+    sc = CL.Supercomputer(num_blocks=4, device=dev)
+    svc = FLT.FleetService(
+        sc, cfg, params, engine_mod.SliceSpec(**FLEET_SPEC),
+        geometry=(4, 4, 4), initial_replicas=1, timing=0.15,
+        autoscale=FLT.AutoscalerConfig(**FLEET_AUTOSCALE), priority=1,
+        preempt_on_allocate=True)
+    check(all(a is b for a, b in zip(_leaves(svc.params), _leaves(params))),
+          "tenancy: the service copied weights already on its device")
+    sc.subscribe(on_machine_event)
+    ckpt = tempfile.mkdtemp(prefix="tenant_")
+    replica = FLT.ServeReplica
+    timed = {}
+    try:
+        job = Probed(sc, CL.TrainTenantSpec(
+            run=run, target_steps=MIX_TARGET_STEPS, ckpt_dir=ckpt,
+            geometries=MIX_GEOMETRIES, priority=0, base_step_s=0.25))
+        check(job.try_start(0.0), "tenancy: the trainer did not start")
+        trace = FLT.generate(FLT.TrafficSpec(**MIX_TRAFFIC,
+                                             vocab_size=cfg.vocab_size),
+                             seed=5)
+        drv = CL.MixedTenancyDriver(svc, job, window_s=0.5)
+        _sync(torch, dev)
+        DA.launches = FA.launches = 0
+        t0 = time.perf_counter()
+        with _timing(torch, dev, timed, [
+                (Trainer, "save", lambda _: "save_in_quantum"
+                 if Probed.in_quantum else "save_outside_quanta"),
+                (Trainer, "restore", lambda _: "restore"),
+                (replica, "step", lambda _: "serve_chunks"),
+                (replica, "dispatch", lambda _: "serve_dispatch")]):
+            rep = drv.run(trace, extra_windows=6)
+        _sync(torch, dev)
+        out["wall_s"] = time.perf_counter() - t0
+        launches = {"paged_decode_attention": DA.launches,
+                    "flash_attention": FA.launches}
+        svc.close()
+        out["chunks_run"] = {r.rep_id: r.stats()["chunks_run"]
+                             for r in svc.retired}
+        # disjoint parts of the wall: a quantum holds its restore, its
+        # steps and the saves made inside it
+        out["split_s"] = dict(
+            {k: v["s"] for k, v in timed.items()},
+            train_quanta=Probed.quanta_s,
+            rest=out["wall_s"] - Probed.quanta_s - sum(
+                timed.get(k, {"s": 0.0})["s"] for k in (
+                    "save_outside_quanta", "serve_chunks",
+                    "serve_dispatch")))
+        out["calls"] = {k: v["calls"] for k, v in timed.items()}
+        served = rep.serve
+        _conserved(trace, served["completed"], served["dropped"],
+                   served["offered"], "tenancy")
+        check(rep.train_preemptions >= 1 and rep.train_resumes >= 1
+              and rep.train_steps == MIX_TARGET_STEPS,
+              f"tenancy: {rep.train_preemptions} preemptions, "
+              f"{rep.train_resumes} resumes, {rep.train_steps} steps")
+        if torch.device(dev).type == "cuda":
+            check(Probed.evictions and all(
+                e["freed"] >= e["held"] and e["freed_published"] >= e["held"]
+                for e in Probed.evictions),
+                  f"tenancy: an eviction freed less than the trainer's "
+                  f"state: {Probed.evictions}")
+            check(launches["paged_decode_attention"] > 0
+                  and launches["flash_attention"] > 0,
+                  f"tenancy: kernels not launched on the path: {launches}")
+        # the tenant's loss curve, from every train.metrics series
+        curve = {}
+        for kind, name, _, series in sc.obs.metrics.items():
+            if kind == "series" and name == "train.metrics":
+                curve.update({m["step"]: m["loss"] for m in series.samples
+                              if "loss" in m})
+        final = Trainer(run, device=dev, ckpt_dir=ckpt).restore()
+        t0 = time.perf_counter()
+        clean_tr = Trainer(run, device=dev)
+        clean = clean_tr.train(MIX_TARGET_STEPS, log_every=1)
+        _sync(torch, dev)
+        out["clean_run_s"] = time.perf_counter() - t0
+        want = {m["step"]: m["loss"] for m in clean_tr.metrics_log
+                if "loss" in m}
+        check(curve == want and len(want) == MIX_TARGET_STEPS,
+              f"tenancy: tenant losses {curve} differ from the "
+              f"uninterrupted run's {want}")
+        check(final.step == MIX_TARGET_STEPS and all(
+            torch.equal(a, b) for a, b in zip(
+                OPT.leaves([final.params, final.opt_state.mu,
+                            final.opt_state.nu]),
+                OPT.leaves([clean.params, clean.opt_state.mu,
+                            clean.opt_state.nu]))),
+              "tenancy: the tenant's final params differ from the "
+              "uninterrupted run's")
+        out.update(report=rep.to_dict(), evictions=Probed.evictions,
+                   losses=[want[s] for s in sorted(want)], bitwise=True,
+                   launches=launches, job_log=job.log)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2585,6 +3074,7 @@ def main(argv=None):
     import numpy as np
     import torch.nn.functional as F
     from repro_torch import cluster as CL
+    from repro_torch import fleet as FLT
     from repro_torch.configs import registry
     from repro_torch.configs.base import (OptimizerConfig, ParallelConfig,
                                           RunConfig, ShapeConfig)
@@ -2715,6 +3205,22 @@ def main(argv=None):
         torch, registry.get_config("olmo-1b"), CL, RunConfig, ShapeConfig,
         ParallelConfig, OptimizerConfig, STEPS, OPT)
     log("fault drill:", json.dumps(drill))
+    gc.collect()
+    torch.cuda.empty_cache()
+    olmo = registry.get_config("olmo-1b")
+    fleet, fleet_launches, olmo_params = fleet_phase(
+        torch, np, olmo, api, CL, FLT, engine_mod, DA, FA, REF)
+    log("fleet:", json.dumps({k: v for k, v in fleet.items() if k != "log"}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixed, mixed_launches = tenancy_phase(
+        torch, np, olmo, _dense_run(olmo.replace(num_layers=DRILL_LAYERS),
+                                    RunConfig, ShapeConfig, ParallelConfig,
+                                    OptimizerConfig),
+        olmo_params, api, CL, FLT, Trainer, OPT, engine_mod, DA, FA)
+    del olmo_params
+    log("mixed tenancy:", json.dumps({k: v for k, v in mixed.items()
+                                      if k != "job_log"}))
 
     decode["launches"] = launches["paged_decode_attention"]
     # the engine paths beside the serve phase's: each counted on its own
@@ -2728,6 +3234,11 @@ def main(argv=None):
         "paged_decode_attention"]
     prefill["launches_trained_serve"] = dense_launches["flash_attention"]
     prefill["launches_int8_engine"] = int8_launches["flash_attention"]
+    # the fleet's replicas, and the fleet beside the training tenant
+    decode["launches_fleet"] = fleet_launches["paged_decode_attention"]
+    prefill["launches_fleet"] = fleet_launches["flash_attention"]
+    decode["launches_mixed"] = mixed_launches["paged_decode_attention"]
+    prefill["launches_mixed"] = mixed_launches["flash_attention"]
     fused, gather = (dlrm_kern[DLRM_BATCH][n]
                      for n in ("fused_lookup", "embedding_gather"))
     fused["launches"] = dlrm_launches["fused_lookup"]
@@ -2744,7 +3255,8 @@ def main(argv=None):
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     more = ("launches_hot", "launches_keys", "launches_pooled_engine",
-            "launches_int8_engine", "launches_trained_serve")
+            "launches_int8_engine", "launches_trained_serve",
+            "launches_fleet", "launches_mixed")
     kernels = {"kernels": [{k: kern[k] for k in keys}
                            | {k: kern[k] for k in more if k in kern}
                            for kern in (decode, pooled["q8"], pooled["bt"],
@@ -2772,6 +3284,7 @@ def main(argv=None):
                  int8_lookup={str(b): v for b, v in int8.items()},
                  per_table_training=per_table,
                  dense_training=dense, fault_drill=drill,
+                 fleet=fleet, mixed_tenancy=mixed,
                  **kernels), indent=2))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

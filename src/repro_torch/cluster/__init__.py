@@ -11,36 +11,22 @@ workloads (port of ``repro.cluster``).
     sl.free()
 
 The machine model is the reference's (``repro_torch.core``, copied); the
-compute of every slice runs on the machine's device.  The multi-machine
-registry and mixed tenancy (``cluster/registry.py``, ``cluster/tenancy.py``)
-are not ported: their names raise ``NotImplementedError`` naming ROADMAP.md
-queue 1, item 16.
+compute of every slice runs on the machine's device.  `MachineRegistry`
+places slices over several machines, of one or several generations
+(``cluster/registry.py``); `ElasticTrainJob` and `MixedTenancyDriver` run
+training as a preemptible, shrinkable tenant beside a serving fleet
+(``cluster/tenancy.py``, with ``repro_torch.fleet``).
 """
+from repro_torch.cluster.registry import MachineRegistry, slice_key
 from repro_torch.cluster.slices import (BoundCollectives, ServeSession, Slice,
                                         SliceError, SliceEvent, SliceSession,
                                         TrainSession)
 from repro_torch.cluster.straggler import StragglerConfig, StragglerDetector
 from repro_torch.cluster.supercomputer import (CapacityError, JobTicket,
                                                Supercomputer)
+from repro_torch.cluster.tenancy import (ElasticTrainJob, MixedTenancyDriver,
+                                         TenancyReport, TrainTenantSpec)
 from repro_torch.serve.engine import SliceSpec
-
-
-def _not_ported(name: str):
-    def stub(*args, **kwargs):
-        raise NotImplementedError(
-            f"repro_torch.cluster.{name} is not ported yet (ROADMAP.md "
-            f"queue 1, item 16: cluster/registry.py and cluster/tenancy.py, "
-            f"with fleet/)")
-    stub.__name__ = stub.__qualname__ = name
-    return stub
-
-
-MachineRegistry = _not_ported("MachineRegistry")
-slice_key = _not_ported("slice_key")
-ElasticTrainJob = _not_ported("ElasticTrainJob")
-MixedTenancyDriver = _not_ported("MixedTenancyDriver")
-TenancyReport = _not_ported("TenancyReport")
-TrainTenantSpec = _not_ported("TrainTenantSpec")
 
 __all__ = [
     "BoundCollectives", "CapacityError", "ElasticTrainJob", "JobTicket",

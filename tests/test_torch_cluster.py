@@ -4,7 +4,8 @@ failures reaching live sessions), the §2.3 drill and a preempt/resume on
 another shape bitwise equal to a clean run, the straggler path fed step
 times through ``Slice.block_times`` (never the wall clock), the copied
 ``repro_torch.core`` against ``repro.core`` on the same inputs, the names
-that are not ported, and the quickstart twin."""
+once stubbed (now the ported registry and tenancy), and the quickstart
+twin."""
 import dataclasses
 import os
 import pathlib
@@ -448,10 +449,20 @@ def test_core_goodput_and_autotopo_equal():
                                   "ElasticTrainJob", "MixedTenancyDriver",
                                   "TenancyReport", "TrainTenantSpec"])
 def test_unported_cluster_names_raise_naming_their_item(name):
+    """The names that raised naming item 16 until the registry and the
+    tenancy were ported: each now resolves to the ported object in
+    ``cluster/registry.py`` or ``cluster/tenancy.py``, never a stub."""
     import repro.cluster as JC
+    from repro_torch.cluster import registry as TREGISTRY
+    from repro_torch.cluster import tenancy as TTENANCY
     assert set(TC.__all__) == set(JC.__all__)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        getattr(TC, name)()
+    obj = getattr(TC, name)
+    home = TREGISTRY if name in ("MachineRegistry", "slice_key") \
+        else TTENANCY
+    assert obj is getattr(home, name)
+    assert obj.__module__ == home.__name__
+    assert obj.__qualname__ == getattr(JC, name).__qualname__
+    assert "stub" not in obj.__qualname__
 
 
 def test_supercomputer_runs_on_the_card_by_default():

@@ -82,3 +82,22 @@ def test_guard_walks_the_module(module):
     path = PKG.joinpath(*module.split(".")[1:])
     assert (path.with_suffix(".py") if path.with_suffix(".py").exists()
             else path / "__init__.py") in SOURCES
+
+
+# the fleet, the registry and the tenancy (slice 5) and the examples'
+# twins: the walk above must reach each
+SLICE_5_MODULES = [
+    "repro_torch.fleet", "repro_torch.fleet.autoscaler",
+    "repro_torch.fleet.replica", "repro_torch.fleet.router",
+    "repro_torch.fleet.service", "repro_torch.fleet.traffic",
+    "repro_torch.cluster.registry", "repro_torch.cluster.tenancy",
+    "repro_torch.launch.serve_fleet", "repro_torch.launch.mixed_cluster",
+]
+
+
+@pytest.mark.parametrize("module", SLICE_5_MODULES)
+def test_guard_walks_the_slice_5_module(module):
+    assert module in _module_names()
+    path = PKG.joinpath(*module.split(".")[1:])
+    assert (path.with_suffix(".py") if path.with_suffix(".py").exists()
+            else path / "__init__.py") in SOURCES
