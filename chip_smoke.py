@@ -189,6 +189,25 @@ each of which fails the run if it fails:
      before the eviction's notification returns), it resumes at the
      trough; its losses and final params equal an uninterrupted
      ``Trainer`` run's, bit for bit; every request accounted for.
+ 16. MoE (run after phase 3, while the card is empty: < 3 GB allocated,
+     checked):
+     rows 1 and 2 at qwen3-moe-30b-a3b's attention shapes (32 query heads
+     over 4 KV heads, d = 128; decode B = 8, S = 1024, mixed lengths;
+     prefill T = S = 128 for a wave of 1 and of 8) against their plain
+     versions, timed in turns with SDPA (``enable_gqa``) beside their
+     bounds; reduced qwen3-moe and kimi-k2 on the card against the CPU
+     with the same weights (prefill logits within the serve bar, 12
+     greedy steps equal; every MoE call recorded on both, a token may
+     choose other experts only at a near tie of the CPU's router logits,
+     and a row is compared up to its first token touched by one); then
+     full-width qwen3-moe-30b-a3b (48 layers, 128 experts, top 8; 61.06
+     GB of bf16 weights from seed 0) in the serve phase's engine and
+     trace shape (16 requests, 128 new tokens, ids below 151936),
+     counted: rows 1 and 2 launched, every request its budget, peak
+     allocated < 72 GB; 8 requests of 16 tokens at chunk 8 and chunk 1
+     bitwise equal, with the dropped fraction of the prefill and decode
+     MoE calls; tokens/s, TTFT, ms a decode step, and the card's idle
+     share over one profiled chunk.
 
 Prints, last: a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and
@@ -3045,6 +3064,343 @@ def tenancy_phase(torch, np, cfg, run, params, api, CL, FLT, Trainer, OPT,
     return out, launches
 
 
+# the MoE family: full-width qwen3-moe-30b-a3b served on one card (61.06
+# GB of bf16 weights) at the serve phase's envelope and trace shape
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_REDUCED = ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b")
+MOE_EMPTY_LIMIT = 3e9           # allocated bytes when the phase starts
+MOE_PEAK_LIMIT = 72e9
+MOE_UNIFORM = dict(n=8, new_tokens=16)   # the chunk-invariance trace
+# router near tie: the k-th and (k+1)-th router logits of a token within
+# this share of its largest |logit| (8 bf16 ulps), as the CPU tests
+ROUTE_REL_TOL = 2.0 ** -5
+
+
+def gqa8_kernel_phase(torch, F, DA, FA, REF, dev="cuda"):
+    """Rows 1 and 2 at qwen3-moe's attention shapes (H = 32 query heads
+    over KH = 4 KV heads, d = 128): decode at B = 8, S = 1024 with the
+    decode phase's mixed lengths, prefill at T = S = 128 for a wave of 1
+    and of 8.  Each is held against its plain version and timed in turns
+    with SDPA (``enable_gqa``; a yardstick only), beside its plain version
+    and its bound."""
+    gen = torch.Generator(device=dev).manual_seed(25)
+    bf = torch.bfloat16
+    H, KH, d = 32, 4, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    out = {}
+    B, S = 8, 1024
+    lens = [0, 1, 100, 257, 512, 700, 1000, 1024]
+    sets = [(randn(B, H, d), randn(B, S, KH, d), randn(B, S, KH, d),
+             torch.tensor(lens, dtype=torch.int32, device=dev))
+            for _ in range(3)]                           # 3 x 17 MB
+    err = max_err(torch, DA.paged_decode_attention(*sets[0]),
+                  REF.paged_decode_attention_ref(*sets[0]),
+                  f"decode at qwen3-moe's B{B} H{H} KH{KH} S{S}")
+    kpos = torch.arange(S, device=dev)
+    masks = [(kpos[None, :] < s[3][:, None].long())[:, None, None, :]
+             for s in sets]
+
+    def sdpa_decode(i):
+        q, k, v, _ = sets[i]
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=masks[i], enable_gqa=True)
+
+    mean, turns = in_turns(torch, {
+        "kernel": lambda i: DA.paged_decode_attention(*sets[i]),
+        "library": sdpa_decode}, 3)
+    rows = sum(lens)
+    bound_ms, bound_by = bound(2 * B * H * d * 2 + 2 * rows * KH * d * 2
+                               + B * 4, 4 * rows * H * d)
+    out["paged_decode_attention"] = dict(
+        shape=[B, H, KH, S, d], max_abs_err=err, ms=mean["kernel"],
+        plain_ms=cuda_ms(torch,
+                         lambda i: REF.paged_decode_attention_ref(*sets[i]),
+                         3),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=mean["library"],
+        ms_turns=turns)
+    T = 128
+    for B in (1, 8):
+        sets = [(randn(B, H, T, d), randn(B, KH, T, d), randn(B, KH, T, d))
+                for _ in range(8)]
+        err = max_err(torch, FA.flash_attention(*sets[0]),
+                      REF.flash_attention_ref(*sets[0]),
+                      f"prefill at qwen3-moe's B{B} H{H} KH{KH} T{T}")
+        mean, turns = in_turns(torch, {
+            "kernel": lambda i: FA.flash_attention(*sets[i]),
+            "library": lambda i: F.scaled_dot_product_attention(
+                *sets[i], is_causal=True, enable_gqa=True)}, 8)
+        bound_ms, bound_by = bound(
+            (2 * B * H * T * d + 2 * B * KH * T * d) * 2,
+            4 * B * H * d * (T * (T + 1) // 2))
+        out[f"flash_attention_B{B}"] = dict(
+            shape=[B, H, KH, T, d], max_abs_err=err, ms=mean["kernel"],
+            plain_ms=cuda_ms(torch,
+                             lambda i: REF.flash_attention_ref(*sets[i]), 8),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=mean["library"],
+            ms_turns=turns)
+    return out
+
+
+def _kept_sets(np, e, capacity):
+    """Each token's experts after capacity, sorted, a dropped pair as -1:
+    the sorted dispatch's rule (an expert keeps its first ``capacity``
+    pairs in the stable order of the flattened ids), in numpy."""
+    flat = e.reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    srt = flat[order]
+    pos = np.empty_like(flat)
+    pos[order] = np.arange(flat.size) - np.searchsorted(srt, srt)
+    return np.sort(np.where((pos < capacity).reshape(e.shape), e, -1), 1)
+
+
+@contextlib.contextmanager
+def route_log(np, MOE):
+    """Record every MoE call of the port while inside: per call, each
+    token's chosen experts (sorted), its kept experts, and the margin
+    between its k-th and (k+1)-th router logits with that margin's bar."""
+    calls = []
+    topk, dispatch = MOE.router_topk, MOE._dispatch_sorted
+
+    def rec_topk(cfg, p, x, dtype):
+        g, e, a = topk(cfg, p, x, dtype)
+        lg = MOE._mm(x, p["router"], dtype).float()
+        if cfg.moe.router_softcap:
+            c = cfg.moe.router_softcap
+            lg = c * lg.div(c).tanh()
+        srt = lg.sort(dim=1, descending=True).values.cpu().numpy()
+        k = cfg.moe.top_k
+        calls.append(dict(chosen=np.sort(e.cpu().numpy(), 1),
+                          margin=srt[:, k - 1] - srt[:, k],
+                          bar=ROUTE_REL_TOL * np.abs(srt).max(1)))
+        return g, e, a
+
+    def rec_dispatch(x, gates, eidx, num_experts, capacity):
+        calls[-1]["kept"] = _kept_sets(np, eidx.cpu().numpy(), capacity)
+        return dispatch(x, gates, eidx, num_experts, capacity)
+
+    MOE.router_topk, MOE._dispatch_sorted = rec_topk, rec_dispatch
+    try:
+        yield calls
+    finally:
+        MOE.router_topk, MOE._dispatch_sorted = topk, dispatch
+
+
+NEVER = 1 << 30
+
+
+def route_splits(np, want, got, what, rows, T, first=None):
+    """Two runs' MoE calls on the same (rows, T) tokens: per row, the first
+    position touched by a routing split, or NEVER (``first`` carries the
+    rows' state in from earlier calls, e.g. a prefill before decode
+    steps).  A token splits where it chose or kept other experts.  Fails
+    unless each token that CHOSE differently while untouched (no split at
+    or before its position in its row in an earlier call: causal
+    attention carries a change only forward in a row) is a near tie of
+    ``want``'s router logits; a kept set that differs alone lost a
+    capacity slot to such a choice in the same call."""
+    check(len(want) == len(got), f"{what}: {len(want)} vs {len(got)} calls")
+    first = np.full((rows,), NEVER) if first is None else first.copy()
+    pos = np.arange(T)
+    for c, (w, g) in enumerate(zip(want, got)):
+        touched = (pos[None, :] >= first[:, None]).reshape(-1)
+        chose = (w["chosen"] != g["chosen"]).any(1)
+        for t in np.nonzero(chose & ~touched)[0]:
+            check(w["margin"][t] < w["bar"][t],
+                  f"{what}: MoE call {c}, token {t} chose experts "
+                  f"{g['chosen'][t].tolist()} for {w['chosen'][t].tolist()}"
+                  f" at a margin {w['margin'][t]:.4f} >= {w['bar'][t]:.4f}")
+        m = (chose | (w["kept"] != g["kept"]).any(1)).reshape(rows, T)
+        first = np.minimum(first, np.where(m.any(1), m.argmax(1), NEVER))
+    return first
+
+
+def moe_reference_phase(torch, np, registry, api, TF, MOE, dev="cuda"):
+    """Reduced qwen3-moe and kimi-k2 (a shared expert and a dense prefix)
+    with the same weights on the CPU (plain attention, CPU matmuls) and on
+    the card (rows 1 and 2, cuBLAS): prefill logits within LOGIT_REL_TOL,
+    then 12 greedy ``decode_step_paged`` steps whose tokens agree.  Every
+    MoE call is recorded on both: a token may choose other experts only at
+    a near tie of the CPU run's router logits (`route_splits`); a row
+    (lane) is compared up to its first token touched by one, and a stream
+    up to a near tie of its CPU logits.  Returns each arch's worst error
+    share, the rows split and the tokens compared."""
+    out = {}
+    for arch in MOE_REDUCED:
+        cfg = registry.get_reduced(arch)
+        p_cpu = api.init_params(cfg, seed=0, device="cpu")
+        p_gpu = _to(p_cpu, dev)
+        B, T, steps = 8, 16, 12
+        toks = torch.randint(0, cfg.vocab_size, (B, T),
+                             generator=torch.Generator().manual_seed(0))
+        runs = {}
+        for name, p, d in (("cpu", p_cpu, "cpu"), ("gpu", p_gpu, dev)):
+            with route_log(np, MOE) as pre:
+                logits, cache = api.prefill(cfg, p, {"tokens": toks.to(d)},
+                                            max_len=T + steps)
+            lens = torch.full((B,), T, dtype=torch.int32, device=d)
+            active = torch.ones((B,), dtype=torch.bool, device=d)
+            tk = logits.argmax(-1).to(torch.int32)
+            out_toks, step_logs, step_logits = [tk.cpu()], [], [logits]
+            for _ in range(steps):
+                with route_log(np, MOE) as log_:
+                    lg, cache, lens = TF.decode_step_paged(cfg, p, cache, tk,
+                                                           lens, active)
+                tk = lg.argmax(-1).to(torch.int32)
+                out_toks.append(tk.cpu())
+                step_logs.append(log_)
+                step_logits.append(lg)
+            runs[name] = dict(pre=pre, steps=step_logs,
+                              toks=torch.stack(out_toks, 1).numpy(),
+                              logits=[x.float().cpu() for x in step_logits])
+        c, g = runs["cpu"], runs["gpu"]
+        first = route_splits(np, c["pre"], g["pre"], f"{arch} prefill", B, T)
+        live = first == NEVER
+        worst, compared = 0.0, 0
+        for s in range(steps + 1):
+            if s:
+                first = route_splits(np, c["steps"][s - 1],
+                                     g["steps"][s - 1], f"{arch} step {s}",
+                                     B, 1, np.where(live, NEVER, 0))
+                live &= first == NEVER
+            lc, lg = c["logits"][s], g["logits"][s]
+            check(bool(torch.isfinite(lg).all()), f"{arch} step {s}: "
+                                                  f"not finite")
+            tol = LOGIT_REL_TOL * lc.abs().max().item()
+            for b in np.nonzero(live)[0]:
+                err = (lc[b] - lg[b]).abs().max().item()
+                check(err <= tol, f"{arch} step {s} row {b}: card vs CPU "
+                                  f"logits differ by {err:.4f} > {tol:.4f}")
+                worst = max(worst, err / tol)
+                top = lc[b].topk(2).values
+                if c["toks"][b, s] != g["toks"][b, s]:
+                    check(float(top[0] - top[1]) < tol,
+                          f"{arch} step {s} row {b}: tokens "
+                          f"{c['toks'][b, s]} vs {g['toks'][b, s]} at a "
+                          f"CPU top-2 margin {float(top[0] - top[1]):.4f}")
+                    live[b] = False
+                else:
+                    compared += 1
+        out[arch] = dict(worst_share_of_tol=worst,
+                         rows_split=int((~live).sum()),
+                         tokens_compared=compared, tokens=B * (steps + 1))
+    return out
+
+
+def moe_serve_phase(torch, np, cfg, api, engine_mod, DA, FA, MOE,
+                    dev="cuda"):
+    """Full-width qwen3-moe-30b-a3b (48 layers, 128 experts, top 8, bf16
+    weights from seed 0) in ``ServeEngine(SliceSpec(slots=8, max_len=1024,
+    prompt_len=128, chunk=8))`` on the serve phase's trace shape (16
+    requests of 32-128 prompt tokens, 128 new tokens each, ids below the
+    vocabulary of 151936), counted: rows 1 and 2 launched, every request
+    its budget, peak allocated < MOE_PEAK_LIMIT.  Then 8 requests of 16
+    tokens (uniform budgets) at chunk 8 and chunk 1: the same tokens bit
+    for bit, and the dropped fraction of each MoE call (prefill, decode);
+    then a profile of one decode chunk (the card's idle share)."""
+    check(torch.cuda.memory_allocated() < MOE_EMPTY_LIMIT,
+          f"{torch.cuda.memory_allocated()} bytes allocated before the MoE "
+          f"phase")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in _leaves(params))
+    weight_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    spec = engine_mod.SliceSpec(**SERVE_SPEC)
+    warm_prompt, prompts = serve_trace(np, cfg.vocab_size)
+    warm = engine_mod.ServeEngine(cfg, params, spec, device=dev)
+    warm.submit(warm_prompt, max_new_tokens=9)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng, reqs, stats, launches = _engine_run(
+        torch, engine_mod, cfg, params, spec, prompts, SERVE_NEW_TOKENS, DA,
+        FA, dev)
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del eng, reqs
+    check(stats["peak_mem_gb"] * 1e9 < MOE_PEAK_LIMIT,
+          f"peak {stats['peak_mem_gb']:.2f} GB over {MOE_PEAK_LIMIT / 1e9}")
+    waves = math.ceil(len(prompts) / spec.slots)
+    check(launches["paged_decode_attention"]
+          >= cfg.num_layers * stats["decode_steps"]
+          and launches["flash_attention"] >= cfg.num_layers * waves,
+          f"MoE serving launches {launches} for {stats['decode_steps']} "
+          f"steps and {waves} waves x {cfg.num_layers} layers")
+    stats.update(init_s=init_s, init_peak_gb=init_peak, params=n_params,
+                 weight_gb=weight_gb, launches=launches,
+                 ms_decode_step=stats["p50_chunk_s"] / spec.chunk * 1e3)
+    # chunk invariance on a uniform-budget trace; the dropped fractions
+    n, new = MOE_UNIFORM["n"], MOE_UNIFORM["new_tokens"]
+    streams = {}
+    for chunk in (8, 1):
+        uspec = engine_mod.SliceSpec(**{**SERVE_SPEC, "chunk": chunk})
+        drops = {"prefill": [], "decode": []}
+        ep, dec = MOE.moe_ep, MOE.moe_decode
+
+        def keep(name, fn):
+            def wrapped(*a, **kw):
+                out = fn(*a, **kw)
+                drops[name].append(out[2])
+                return out
+            return wrapped
+
+        MOE.moe_ep, MOE.moe_decode = keep("prefill", ep), keep("decode", dec)
+        try:
+            _, ureqs, _, _ = _engine_run(torch, engine_mod, cfg, params,
+                                         uspec, prompts[:n], new, DA, FA,
+                                         dev)
+        finally:
+            MOE.moe_ep, MOE.moe_decode = ep, dec
+        streams[chunk] = [list(r.out_tokens) for r in ureqs]
+        if chunk == 8:
+            stats["dropped_prefill"] = float(torch.stack(
+                drops["prefill"]).mean())
+            stats["dropped_decode"] = float(torch.stack(
+                drops["decode"]).mean())
+            stats["dropped_prefill_by_layer"] = [float(d) for d in
+                                                 drops["prefill"]]
+            stats["moe_calls"] = {k: len(v) for k, v in drops.items()}
+    check(streams[8] == streams[1],
+          "qwen3-moe: chunk 8 and chunk 1 served different tokens")
+    stats["chunk_invariant_bitwise"] = True
+    # full-width logits are finite and of the expected shape
+    toks = torch.as_tensor(np.stack([p[-64:] for p in prompts[:2]]),
+                           device=dev).long()
+    logits, _ = api.prefill(cfg, params, {"tokens": toks})
+    check(tuple(logits.shape) == (2, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"full-width prefill logits {tuple(logits.shape)} not finite")
+    stats["profile"] = profile_chunk(torch, np, cfg, params, engine_mod, spec)
+    del params
+    return stats, launches
+
+
+def moe_phase(torch, np, F, registry, api, engine_mod, DA, FA, REF, MOE, TF,
+              dev="cuda"):
+    """Phase 16: the MoE family.  Rows 1 and 2 at qwen3-moe's shapes, the
+    reduced MoE archs card vs CPU, then full-width qwen3-moe served."""
+    t_phase = time.perf_counter()
+    kernels = gqa8_kernel_phase(torch, F, DA, FA, REF, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reference = moe_reference_phase(torch, np, registry, api, TF, MOE, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve, launches = moe_serve_phase(
+        torch, np, registry.get_config(MOE_ARCH), api, engine_mod, DA, FA,
+        MOE, dev)
+    out = dict(kernels=kernels, reference=reference, serve=serve,
+               phase_s=time.perf_counter() - t_phase)
+    return out, launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3093,6 +3449,7 @@ def main(argv=None):
     from repro_torch.launch import steps as STEPS
     from repro_torch.models import api
     from repro_torch.models import dlrm as DL
+    from repro_torch.models import moe as MOE
     from repro_torch.models import quant as QU
     from repro_torch.models import transformer as TF
     from repro_torch.optim import adam as OPT
@@ -3130,6 +3487,14 @@ def main(argv=None):
     worst = reference_phase(torch, registry, api, TF)
     log(f"reference: card vs CPU logits differ by at most {worst[1]:.3e} "
         f"(tolerance {worst[2]:.3e} at that step)")
+    # the MoE family first, while the card is empty (61 GB of weights)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe, moe_launches = moe_phase(torch, np, F, registry, api, engine_mod,
+                                  DA, FA, REF, MOE, TF)
+    log("moe:", json.dumps(moe))
+    gc.collect()                    # its 61 GB of weights
+    torch.cuda.empty_cache()
     stats, launches = serve_phase(torch, np, registry.get_config("olmo-1b"),
                                   api, engine_mod, DA, FA)
     log("serve:", json.dumps(stats))
@@ -3239,6 +3604,9 @@ def main(argv=None):
     prefill["launches_fleet"] = fleet_launches["flash_attention"]
     decode["launches_mixed"] = mixed_launches["paged_decode_attention"]
     prefill["launches_mixed"] = mixed_launches["flash_attention"]
+    # full-width qwen3-moe served (H = 32 over KH = 4)
+    decode["launches_moe"] = moe_launches["paged_decode_attention"]
+    prefill["launches_moe"] = moe_launches["flash_attention"]
     fused, gather = (dlrm_kern[DLRM_BATCH][n]
                      for n in ("fused_lookup", "embedding_gather"))
     fused["launches"] = dlrm_launches["fused_lookup"]
@@ -3256,7 +3624,7 @@ def main(argv=None):
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     more = ("launches_hot", "launches_keys", "launches_pooled_engine",
             "launches_int8_engine", "launches_trained_serve",
-            "launches_fleet", "launches_mixed")
+            "launches_fleet", "launches_mixed", "launches_moe")
     kernels = {"kernels": [{k: kern[k] for k in keys}
                            | {k: kern[k] for k in more if k in kern}
                            for kern in (decode, pooled["q8"], pooled["bt"],
@@ -3284,7 +3652,7 @@ def main(argv=None):
                  int8_lookup={str(b): v for b, v in int8.items()},
                  per_table_training=per_table,
                  dense_training=dense, fault_drill=drill,
-                 fleet=fleet, mixed_tenancy=mixed,
+                 fleet=fleet, mixed_tenancy=mixed, moe=moe,
                  **kernels), indent=2))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -1,8 +1,9 @@
-"""Config dataclasses the port's dense and DLRM families need.
+"""Config dataclasses the port's dense, MoE and DLRM families need.
 
 Copies of ``repro.configs.base.ShapeConfig``, ``AttentionConfig``,
-``EmbeddingTableConfig``, ``DLRMConfig`` and ``ModelConfig``, the last cut
-to the fields a dense decoder or a DLRM reads, and of the run-level
+``MoEConfig``, ``EmbeddingTableConfig``, ``DLRMConfig`` and
+``ModelConfig``, the last cut to the fields a dense or MoE decoder or a
+DLRM reads, and of the run-level
 ``ParallelConfig``, ``OptimizerConfig`` and ``RunConfig``, whole.  The port keeps its own
 copy instead of importing the JAX package; ``tests/test_torch_interop.py``
 holds every kept field equal to the reference config.
@@ -47,6 +48,19 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    expert_ffw: int                    # per-expert FFN hidden dim
+    num_shared_experts: int = 0        # kimi-k2 style shared expert(s)
+    shared_ffw: int = 0
+    router_softcap: Optional[float] = None
+    # first `dense_layers` layers use a dense FFN instead of MoE (deepseek/kimi style)
+    dense_layers: int = 0
+    dense_ffw: int = 0
+
+
+@dataclass(frozen=True)
 class EmbeddingTableConfig:
     name: str
     vocab_size: int
@@ -73,12 +87,13 @@ class DLRMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # "dense" | "dlrm" (others: not ported)
+    family: str                        # "dense" | "moe" | "dlrm" (others: not ported)
     num_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attention: Optional[AttentionConfig] = None
+    moe: Optional[MoEConfig] = None
     dlrm: Optional[DLRMConfig] = None
 
     norm: str = "rmsnorm"              # "rmsnorm" | "layernorm" | "nonparam_ln"

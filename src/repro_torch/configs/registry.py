@@ -1,6 +1,7 @@
 """Architecture registry for the archs the port runs: --arch <id> ->
-(full config, reduced config).  Other archs of ``repro.configs.registry``
-join as their families are ported (ROADMAP.md, queue 1, item 11)."""
+(full config, reduced config), under the names of
+``repro.configs.registry``.  Other archs join as their families are
+ported (ROADMAP.md, queue 1, item 11)."""
 from __future__ import annotations
 
 import importlib
@@ -9,6 +10,8 @@ from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe",
     "dlrm0": "repro_torch.configs.dlrm0",
 }
 

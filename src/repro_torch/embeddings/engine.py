@@ -43,11 +43,12 @@ lie.  The per-table route runs through ``ops.GatherRows``: the row-gather
 kernel forward (one launch per table), the fused-scatter kernel backward
 (one launch per row space), both dispatched by device the same way.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): the distributed psum / all-to-all exchanges (queue 1, item 12) and
-the hot-id cache with its ``PipelinedEmbeddingExecutor``, which
-deduplicates ids on its way (queue 1, item 10; ``embeddings/dedup.py``
-itself is ported).
+Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md
+queue 1, item 12, several devices): the distributed psum / all-to-all
+exchanges and the hot-id cache with its ``PipelinedEmbeddingExecutor``,
+which deduplicates ids on its way (``embeddings/dedup.py`` itself is
+ported); the cache changes only the row-sharded all-to-all path, so on
+one device it would be host bookkeeping only.
 """
 from __future__ import annotations
 
@@ -324,7 +325,7 @@ class EmbeddingCollection:
         if method not in ("auto", "local"):
             raise ValueError(f"unknown lookup method {method!r}")
         if cache is not None:
-            raise _not_ported("the hot-id cache (HotIdCache)", 10)
+            raise _not_ported("the hot-id cache (HotIdCache)", 12)
         if fused and (self.replicated or self.groups):
             return self._lookup_fused(params, features, which="all")
         out = self._lookup_replicated_legacy(params, features)
@@ -380,7 +381,7 @@ class PipelinedEmbeddingExecutor:
 
     def __init__(self, *args, **kwargs):
         raise _not_ported("PipelinedEmbeddingExecutor (hot-id cache, id "
-                          "dedup)", 10)
+                          "dedup)", 12)
 
 
 # ---------------------------------------------------------------------------

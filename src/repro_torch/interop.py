@@ -10,6 +10,14 @@ frameworks on the same weights:
     layers/attn/wo   (L, H*hd, d)
     layers/mlp/wg,wu (L, d, f)         wo (L, f, d)
 
+a MoE model's (``models/moe.py``), over its Ls = L - dense_layers stacked
+layers, in place of ``mlp``:
+
+    layers/moe/router    (Ls, d, E)
+    layers/moe/wg,wu     (Ls, E, d, F)   wo (Ls, E, F, d)
+    layers/moe/shared    {wg, wu (Ls, d, f), wo (Ls, f, d)} (kimi-k2)
+    dense_prefix         list of unstacked blocks {ln1, attn, ln2, mlp}
+
 and the DLRM's (``models/dlrm.py``):
 
     tables/local_d{D}  (R, D) f32     one row space per embedding width

@@ -2,7 +2,9 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b
 
-serves full-width olmo-1b on the card with random weights from ``--seed``;
+serves full-width olmo-1b on the card with random weights from ``--seed``
+(``--arch qwen3-moe-30b-a3b`` or ``kimi-k2-1t-a32b``: a MoE model;
+full-width kimi-k2 does not fit one card);
 ``--reduced`` picks the smoke-test config and ``--device cpu`` the CPU
 (plain attention instead of the CUDA kernels).  ``--chunk`` sets the decode
 tokens advanced per host sync; ``--chunk 1`` gives identical greedy output.
@@ -23,7 +25,8 @@ from repro_torch.serve.engine import ServeEngine, SliceSpec
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b", choices=[
-        a for a in registry.ARCHS if registry.get_config(a).family == "dense"])
+        a for a in registry.ARCHS
+        if registry.get_config(a).family in ("dense", "moe")])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)

@@ -1,7 +1,9 @@
 """Family-dispatching model API of the port (``repro/models/api.py``).
 
-The dense family trains (`forward`) and serves (prefill, decode); the
-DLRM family scores and trains (`init_params`, `forward`, `make_batch`).  Every other family, and every
+The dense family trains (`forward`) and serves (prefill, decode); the MoE
+family serves (`init_params`, `forward`, prefill, `decode_n`; not the
+pooled KV cache, as in the reference); the DLRM family scores and trains
+(`init_params`, `forward`, `make_batch`).  Every other family, and every
 entry point a family does not have yet, raises ``NotImplementedError``
 naming its ROADMAP.md item.  Entry points that create tensors take
 ``device=`` and default to the card: without CUDA and without
@@ -30,8 +32,9 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def _family(cfg: ModelConfig, *ok: str) -> None:
-    """Raise unless ``cfg.family`` is one of ``ok`` (default: dense)."""
-    ok = ok or ("dense",)
+    """Raise unless ``cfg.family`` is one of ``ok`` (default: the decoder
+    families, dense and MoE)."""
+    ok = ok or ("dense", "moe")
     if cfg.family in ok:
         return
     if cfg.family == "audio":
@@ -41,11 +44,14 @@ def _family(cfg: ModelConfig, *ok: str) -> None:
     if cfg.family == "dlrm":
         raise NotImplementedError(
             "the DLRM scores through api.forward; it has no decoder")
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe") and ok == ("dlrm",):   # make_batch
         raise NotImplementedError(
-            "api.make_batch of the dense family waits for ROADMAP.md queue "
-            "1, item 5; training draws its batches from "
-            "data.synthetic.Dataset")
+            f"api.make_batch of the {cfg.family} family waits for ROADMAP.md "
+            f"queue 1, item 5; training draws its batches from "
+            f"data.synthetic.Dataset")
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "pooled prefix-shared KV is dense-transformer only")
     raise NotImplementedError(
         f"family {cfg.family!r} waits for ROADMAP.md queue 1, item 11")
 
@@ -53,13 +59,13 @@ def _family(cfg: ModelConfig, *ok: str) -> None:
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                 dtype: Optional[torch.dtype] = None):
     """Random params from a ``torch.Generator`` seeded with ``seed``, on
-    ``device``, in the JAX layout.  ``dtype``: the dense family's weights
+    ``device``, in the JAX layout.  ``dtype``: a decoder's weights
     (default bf16 for serving; ``torch.float32`` for training, the
     reference's f32 master weights, cast to bf16 at each use); a DLRM's
     params are f32, as the reference's.  ``device="meta"`` gives the
     shapes and dtypes only (`param_shapes`).  (Weights that must equal the
     JAX package's come over through ``repro_torch.interop``.)"""
-    _family(cfg, "dense", "dlrm")
+    _family(cfg, "dense", "moe", "dlrm")
     dev = resolve_device(device)
     # a meta tensor draws nothing: any generator will do
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
@@ -79,14 +85,15 @@ def param_shapes(cfg: ModelConfig, dtype: Optional[torch.dtype] = None):
 
 
 def forward(cfg: ModelConfig, p, batch, **kw):
-    """Dense: -> (logits (B, T, V) f32, aux); ``remat=``, ``kv_chunk=``,
+    """Dense, MoE: -> (logits (B, T, V) f32, aux: the MoE load-balance
+    losses summed, 0.0 for dense); ``remat=``, ``kv_chunk=``,
     ``return_hidden=`` and ``attn_impl=`` as ``transformer.forward``.
     DLRM: -> (logits (B,) f32, aux 0.0); ``fused=`` picks the lookup route
     (see ``models/dlrm.forward``)."""
-    _family(cfg, "dense", "dlrm")
-    if cfg.family == "dense":
-        return TF.forward(cfg, p, batch, **kw)
-    return DL.forward(cfg, p, batch, **kw)
+    _family(cfg, "dense", "moe", "dlrm")
+    if cfg.family == "dlrm":
+        return DL.forward(cfg, p, batch, **kw)
+    return TF.forward(cfg, p, batch, **kw)
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, *, seed: int = 0,
@@ -144,7 +151,7 @@ def init_kv_pool(cfg: ModelConfig, num_blocks: int, block_size: int, *,
                  device="cuda"):
     """Pooled bf16 KV cache (L, NB, bs, KH, hd) on ``device``; dense
     attention families only; see transformer.init_kv_pool."""
-    _family(cfg)
+    _family(cfg, "dense")
     return TF.init_kv_pool(cfg, num_blocks, block_size,
                            device=resolve_device(device))
 
@@ -154,5 +161,5 @@ def prefill_suffix(cfg: ModelConfig, p, cache, tokens, start, valid, tables):
     logical position ``start`` with ``valid`` fresh tokens, KV lands in the
     blocks named by ``tables`` (in place); see transformer.prefill_suffix.
     Returns (logits (B, V) at each row's last valid position, cache)."""
-    _family(cfg)
+    _family(cfg, "dense")
     return TF.prefill_suffix(cfg, p, cache, tokens, start, valid, tables)

@@ -16,6 +16,7 @@ reference's is plain jnp: the reference has no kernel with a backward.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -24,6 +25,39 @@ import torch.nn.functional as F
 from repro_torch.configs.base import AttentionConfig, ModelConfig
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import quant as Q
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+_LO, _HI = (0.5 * (1.0 + math.erf(z / math.sqrt(2.0))) for z in (-2.0, 2.0))
+# elements drawn at once: a larger leaf is drawn in flat chunks, so its f32
+# temporaries stay ~1 GB each (a full-width qwen3-moe expert leaf holds
+# 9.7e9 elements)
+INIT_CHUNK = 1 << 28
+
+
+def _trunc_normal_flat(gen, shape, fan_in, device, dtype):
+    u = torch.rand(shape, generator=gen, device=device)
+    x = torch.erfinv(2.0 * (_LO + u * (_HI - _LO)) - 1.0) * math.sqrt(2.0)
+    return (x.clamp_(-2.0, 2.0) / math.sqrt(fan_in)).to(dtype)
+
+
+def trunc_normal(gen, shape, fan_in, device, dtype):
+    """Normal truncated to [-2, 2], divided by sqrt(fan_in) (the reference's
+    ``truncated_normal / sqrt(fan_in)``), by the inverse CDF, in ``dtype``.
+    A leaf of more than `INIT_CHUNK` elements is drawn chunk by chunk
+    straight into its ``dtype`` storage."""
+    n = math.prod(shape)
+    if n <= INIT_CHUNK or torch.device(device).type == "meta":
+        return _trunc_normal_flat(gen, shape, fan_in, device, dtype)
+    out = torch.empty(shape, device=device, dtype=dtype)
+    flat = out.view(-1)
+    for a in range(0, n, INIT_CHUNK):
+        b = min(n, a + INIT_CHUNK)
+        flat[a:b] = _trunc_normal_flat(gen, (b - a,), fan_in, device, dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,13 @@
-"""Dense decoder stack of the port: init, the training forward, prefill,
-paged decode, decode_n, over a per-slot KV cache or a pooled block-table
-one (`init_kv_pool`, `prefill_suffix`).
+"""Decoder stack of the port (dense and MoE families): init, the training
+forward, prefill, paged decode, decode_n, over a per-slot KV cache or,
+for the dense family, a pooled block-table one (`init_kv_pool`,
+`prefill_suffix`).
 
-Ports of ``repro/models/transformer.py`` for the dense family.  JAX scans a
+Ports of ``repro/models/transformer.py`` for the dense and MoE families.
+A MoE model's stacked layers carry ``moe`` in place of ``mlp``
+(``models/moe.py``); its dense prefix (kimi-k2) is the unstacked list
+``dense_prefix`` with its own KV (``Cache.prefix_k/v``), run before the
+stack with global windows, as the reference unrolls it.  JAX scans a
 stacked layer body; here a Python loop walks the same stacked params
 (``p["layers"][...][l]``).  JAX's arrays are immutable; the port writes the
 KV cache IN PLACE (``cache_insert`` and ``decode_step_paged`` return the
@@ -27,8 +32,7 @@ Numerics kept from the reference, where they are easy to lose:
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,16 +42,38 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as OPS
 from repro_torch.kernels import ref as REF
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import quant as Q
 
 GLOBAL_WINDOW = 1 << 30
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.attention is None or cfg.vision_prefix:
+def _require_decoder(cfg: ModelConfig) -> None:
+    if (cfg.family not in ("dense", "moe") or cfg.attention is None
+            or cfg.vision_prefix):
         raise NotImplementedError(
-            f"repro_torch serves the dense family only; {cfg.name} "
+            f"repro_torch serves the dense and MoE families only; {cfg.name} "
             f"({cfg.family}) waits for ROADMAP.md queue 1, item 11")
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    """The pooled prefix-shared KV cache: dense attention families only,
+    as the reference asserts."""
+    _require_decoder(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"pooled prefix-shared KV is dense-transformer only, not "
+            f"{cfg.name} ({cfg.family})")
+
+
+def num_moe_layers(cfg: ModelConfig) -> int:
+    return cfg.num_layers - (cfg.moe.dense_layers if cfg.moe else 0)
+
+
+def _n_scan(cfg: ModelConfig) -> int:
+    """Layers of the stacked ``p["layers"]``: all of them, or a MoE
+    model's layers after its dense prefix."""
+    return num_moe_layers(cfg) if cfg.family == "moe" else cfg.num_layers
 
 
 # ---------------------------------------------------------------------------
@@ -70,9 +96,11 @@ def window_schedule(cfg: ModelConfig) -> np.ndarray:
 
 
 def _windows(cfg: ModelConfig):
-    """Per-layer window as the kernels take it: None for a global layer."""
+    """Window of each stacked layer as the kernels take it: None for a
+    global layer.  A MoE model's stack starts after its dense prefix
+    (whose layers are global)."""
     return [None if w >= GLOBAL_WINDOW else int(w)
-            for w in window_schedule(cfg)]
+            for w in window_schedule(cfg)[cfg.num_layers - _n_scan(cfg):]]
 
 
 def _layer(tree, l: int):
@@ -89,62 +117,73 @@ def _layer(tree, l: int):
 # Init
 # ---------------------------------------------------------------------------
 
-_LO, _HI = (0.5 * (1.0 + math.erf(z / math.sqrt(2.0))) for z in (-2.0, 2.0))
-
-
-def _trunc_normal(gen, shape, fan_in, device, dtype):
-    """Normal truncated to [-2, 2], divided by sqrt(fan_in) (the reference's
-    ``truncated_normal / sqrt(dims[0])``), by the inverse CDF."""
-    u = torch.rand(shape, generator=gen, device=device)
-    x = torch.erfinv(2.0 * (_LO + u * (_HI - _LO)) - 1.0) * math.sqrt(2.0)
-    return (x.clamp_(-2.0, 2.0) / math.sqrt(fan_in)).to(dtype)
-
-
-def _norm_init(cfg: ModelConfig, L_: int, device, dtype):
+def _norm_init(cfg: ModelConfig, lead, device, dtype):
+    shape = tuple(lead) + (cfg.d_model,)
     if cfg.norm == "nonparam_ln":
         return {}
     if cfg.norm == "layernorm":
-        return {"w": torch.ones((L_, cfg.d_model), device=device, dtype=dtype),
-                "b": torch.zeros((L_, cfg.d_model), device=device,
-                                 dtype=dtype)}
-    return {"w": torch.zeros((L_, cfg.d_model), device=device, dtype=dtype)}
+        return {"w": torch.ones(shape, device=device, dtype=dtype),
+                "b": torch.zeros(shape, device=device, dtype=dtype)}
+    return {"w": torch.zeros(shape, device=device, dtype=dtype)}
+
+
+def _block_init(cfg: ModelConfig, gen, lead, d_ff, device, dtype):
+    """One pre-norm block's attention and norms (stacked over ``lead``),
+    with a dense MLP of width ``d_ff``, or none for ``d_ff=None``."""
+    a = cfg.attention
+    d = cfg.d_model
+    H, KH, hd = a.num_heads, a.num_kv_heads, a.head_dim
+
+    def tn(*shape):
+        return L.trunc_normal(gen, lead + shape, shape[0], device, dtype)
+
+    attn = {"wq": tn(d, H, hd), "wk": tn(d, KH, hd), "wv": tn(d, KH, hd),
+            "wo": tn(H * hd, d)}
+    if a.qkv_bias:
+        attn.update({k: torch.zeros(lead + (h, hd), device=device,
+                                    dtype=dtype)
+                     for k, h in (("bq", H), ("bk", KH), ("bv", KH))})
+    blk = {"ln1": _norm_init(cfg, lead, device, dtype), "attn": attn,
+           "ln2": _norm_init(cfg, lead, device, dtype)}
+    if d_ff is not None:
+        mlp = {"wo": tn(d_ff, d)}
+        if cfg.ffn_glu:
+            mlp.update(wg=tn(d, d_ff), wu=tn(d, d_ff))
+        else:
+            mlp["wi"] = tn(d, d_ff)
+        blk["mlp"] = mlp
+    return blk
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
                 dtype=torch.bfloat16) -> Dict[str, Any]:
     """Random params in the JAX layout (see ``interop``), from ``gen``.
     Same distributions as the reference's ``init_params``, not the same
-    numbers: JAX's PRNG is not reproduced."""
-    _require_dense(cfg)
-    a = cfg.attention
-    d, f, n = cfg.d_model, cfg.d_ff, cfg.num_layers
-    H, KH, hd = a.num_heads, a.num_kv_heads, a.head_dim
-
-    def tn(*shape):
-        return _trunc_normal(gen, (n,) + shape, shape[0], device, dtype)
-
-    attn = {"wq": tn(d, H, hd), "wk": tn(d, KH, hd), "wv": tn(d, KH, hd),
-            "wo": tn(H * hd, d)}
-    if a.qkv_bias:
-        attn.update({k: torch.zeros((n, h, hd), device=device, dtype=dtype)
-                     for k, h in (("bq", H), ("bk", KH), ("bv", KH))})
-    mlp = {"wo": tn(f, d)}
-    if cfg.ffn_glu:
-        mlp.update(wg=tn(d, f), wu=tn(d, f))
-    else:
-        mlp["wi"] = tn(d, f)
-    layers = {"ln1": _norm_init(cfg, n, device, dtype), "attn": attn,
-              "ln2": _norm_init(cfg, n, device, dtype), "mlp": mlp}
+    numbers: JAX's PRNG is not reproduced.  A MoE model's stacked layers
+    hold ``moe`` (``moe.moe_init``) in place of ``mlp``, and its dense
+    prefix is the list ``dense_prefix`` of unstacked blocks."""
+    _require_decoder(cfg)
+    d, n = cfg.d_model, _n_scan(cfg)
+    moe = cfg.family == "moe"
+    layers = _block_init(cfg, gen, (n,), None if moe else cfg.d_ff, device,
+                         dtype)
+    if moe:
+        layers["moe"] = MOE.moe_init(cfg, gen, stacked=n, device=device,
+                                     dtype=dtype)
     if cfg.post_norm:
-        layers["post_ln1"] = _norm_init(cfg, n, device, dtype)
-        layers["post_ln2"] = _norm_init(cfg, n, device, dtype)
-    final = _norm_init(cfg, 1, device, dtype)
+        layers["post_ln1"] = _norm_init(cfg, (n,), device, dtype)
+        layers["post_ln2"] = _norm_init(cfg, (n,), device, dtype)
     p = {"embed": torch.randn((cfg.vocab_size, d), generator=gen,
                               device=device).to(dtype),
-         "final_norm": {k: v[0] for k, v in final.items()},
+         "final_norm": _norm_init(cfg, (), device, dtype),
          "layers": layers}
     if not cfg.tie_embeddings:
-        p["head"] = _trunc_normal(gen, (d, cfg.vocab_size), d, device, dtype)
+        p["head"] = L.trunc_normal(gen, (d, cfg.vocab_size), d, device,
+                                   dtype)
+    if moe and cfg.moe.dense_layers:
+        p["dense_prefix"] = [
+            _block_init(cfg, gen, (), cfg.moe.dense_ffw, device, dtype)
+            for _ in range(cfg.moe.dense_layers)]
     return p
 
 
@@ -177,16 +216,26 @@ class Cache:
     k: torch.Tensor                      # (L, B, S, KH, hd)
     v: torch.Tensor
     pos: torch.Tensor                    # () int32: tokens already cached
+    # a MoE model's dense prefix: one (B, S, KH, hd) per prefix layer
+    prefix_k: Optional[List[torch.Tensor]] = None
+    prefix_v: Optional[List[torch.Tensor]] = None
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                dtype=torch.bfloat16) -> Cache:
-    _require_dense(cfg)
+    _require_decoder(cfg)
     a = cfg.attention
-    kv = (cfg.num_layers, batch, max_len, a.num_kv_heads, a.head_dim)
-    return Cache(k=torch.zeros(kv, dtype=dtype, device=device),
-                 v=torch.zeros(kv, dtype=dtype, device=device),
-                 pos=torch.zeros((), dtype=torch.int32, device=device))
+    kv = (_n_scan(cfg), batch, max_len, a.num_kv_heads, a.head_dim)
+    c = Cache(k=torch.zeros(kv, dtype=dtype, device=device),
+              v=torch.zeros(kv, dtype=dtype, device=device),
+              pos=torch.zeros((), dtype=torch.int32, device=device))
+    npre = cfg.num_layers - _n_scan(cfg)
+    if npre:
+        c.prefix_k = [torch.zeros(kv[1:], dtype=dtype, device=device)
+                      for _ in range(npre)]
+        c.prefix_v = [torch.zeros(kv[1:], dtype=dtype, device=device)
+                      for _ in range(npre)]
+    return c
 
 
 def init_kv_pool(cfg: ModelConfig, num_blocks: int, block_size: int, *,
@@ -229,15 +278,34 @@ def _write_rows(flat, src, at, any_kept, new):
 # Layer body
 # ---------------------------------------------------------------------------
 
-def _layer_tail(cfg: ModelConfig, lp, x, h):
-    """Residual add of the attention output ``h``, then the MLP block."""
+def _layer_tail(cfg: ModelConfig, lp, x, h, *, decode: bool = False):
+    """Residual add of the attention output ``h``, then the FFN block: the
+    dense MLP, or the MoE layer (``moe.moe_ep``, or ``moe.moe_decode`` for
+    ``decode``).  Returns (x, aux): the MoE load-balance loss, None for a
+    dense MLP."""
     if cfg.post_norm:
         h = L.apply_norm(cfg, lp["post_ln1"], h)
     x = x + h
-    h = L.mlp_apply(cfg, lp["mlp"], L.apply_norm(cfg, lp["ln2"], x))
+    h = L.apply_norm(cfg, lp["ln2"], x)
+    aux = None
+    if "moe" in lp:
+        moe_fn = MOE.moe_decode if decode else MOE.moe_ep
+        h, aux, _ = moe_fn(cfg, lp["moe"], h)
+    else:
+        h = L.mlp_apply(cfg, lp["mlp"], h)
     if cfg.post_norm:
         h = L.apply_norm(cfg, lp["post_ln2"], h)
-    return x + h
+    return x + h, aux
+
+
+def _blocks(cfg: ModelConfig, p, cache: Cache):
+    """Every layer in order, as (params, window, k cache, v cache): a MoE
+    model's dense prefix (global windows, ``cache.prefix_k/v``), then the
+    stacked layers (``cache.k/v[l]``)."""
+    for i, blk in enumerate(p.get("dense_prefix", [])):
+        yield blk, None, cache.prefix_k[i], cache.prefix_v[i]
+    for l, win in enumerate(_windows(cfg)):
+        yield _layer(p["layers"], l), win, cache.k[l], cache.v[l]
 
 
 # ---------------------------------------------------------------------------
@@ -247,8 +315,10 @@ def _layer_tail(cfg: ModelConfig, lp, x, h):
 def prefill(cfg: ModelConfig, p, batch: Dict[str, Any], *,
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
     """Forward over the prompt; returns (last-position logits (B, V) f32,
-    filled cache of length ``max_len`` (default T))."""
-    _require_dense(cfg)
+    filled cache of length ``max_len`` (default T)).  A MoE layer routes
+    all B x T tokens together (capacity counts the whole dispatch, padding
+    included, as the reference's)."""
+    _require_decoder(cfg)
     tokens = batch["tokens"]
     B, T = tokens.shape
     a = cfg.attention
@@ -256,8 +326,7 @@ def prefill(cfg: ModelConfig, p, batch: Dict[str, Any], *,
     S = max_len or T
     positions = torch.arange(T, device=tokens.device).expand(B, T)
     cache = init_cache(cfg, B, S, device=tokens.device)
-    for l, win in enumerate(_windows(cfg)):
-        lp = _layer(p["layers"], l)
+    for lp, win, kc, vc in _blocks(cfg, p, cache):
         h = L.apply_norm(cfg, lp["ln1"], x)
         q, k, v = L.attention_qkv(lp["attn"], h, a, positions)
         # the kernel takes the JAX flash layout (B, H, T, d) / (B, KH, S, d)
@@ -265,9 +334,9 @@ def prefill(cfg: ModelConfig, p, batch: Dict[str, Any], *,
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), causal=True, window=win,
             softcap=a.logit_softcap, scale=a.attn_scale).transpose(1, 2)
-        cache.k[l, :, :T] = k
-        cache.v[l, :, :T] = v
-        x = _layer_tail(cfg, lp, x, L.attention_out(lp["attn"], o))
+        kc[:, :T] = k
+        vc[:, :T] = v
+        x, _ = _layer_tail(cfg, lp, x, L.attention_out(lp["attn"], o))
     cache.pos.fill_(T)
     x = L.apply_norm(cfg, p["final_norm"], x)
     return unembed(cfg, p, x[:, -1:, :])[:, 0], cache
@@ -283,7 +352,7 @@ def attn_group_size(cfg: ModelConfig) -> int:
     position of a group a static window."""
     a = cfg.attention
     if (a and a.sliding_window and a.global_every > 0
-            and cfg.num_layers % a.global_every == 0):
+            and _n_scan(cfg) % a.global_every == 0):
         return a.global_every
     return 1
 
@@ -294,7 +363,7 @@ def can_qchunk(cfg: ModelConfig) -> bool:
     a = cfg.attention
     if a is None or a.sliding_window is None or a.global_every == 0:
         return True
-    return cfg.num_layers % a.global_every == 0
+    return _n_scan(cfg) % a.global_every == 0
 
 
 def static_window_for(cfg: ModelConfig, idx_in_group: int, group: int):
@@ -309,8 +378,8 @@ def static_window_for(cfg: ModelConfig, idx_in_group: int, group: int):
 def _dense_layer(cfg: ModelConfig, lp, x, positions, window, *,
                  kv_chunk: int = 1024, attn_impl: str = "blocked"):
     """One pre-norm layer over the whole sequence (the reference's
-    ``_dense_layer`` for the dense family): plain-torch attention,
-    differentiable."""
+    ``_dense_layer``): plain-torch attention, differentiable.  Returns
+    (x, aux) as `_layer_tail`."""
     a = cfg.attention
     h = L.apply_norm(cfg, lp["ln1"], x)
     if attn_impl == "qchunked":
@@ -328,8 +397,10 @@ def _dense_layer(cfg: ModelConfig, lp, x, positions, window, *,
 def forward(cfg: ModelConfig, p, batch: Dict[str, Any], *,
             kv_chunk: int = 1024, remat: bool = False,
             return_hidden: bool = False, attn_impl: str = "blocked"):
-    """Teacher-forced forward of the dense family -> (logits (B, T, V) f32,
-    aux 0.0), or (final hidden (B, T, D), aux) with ``return_hidden``.
+    """Teacher-forced forward -> (logits (B, T, V) f32, aux), or (final
+    hidden (B, T, D), aux) with ``return_hidden``.  aux is the MoE layers'
+    load-balance losses summed in layer order (0.0 for the dense family);
+    a MoE model's dense prefix runs first, with global windows.
 
     ``attn_impl="qchunked"`` (where `can_qchunk`) walks the stack in groups
     of `attn_group_size` layers with static windows, as the reference's
@@ -337,33 +408,38 @@ def forward(cfg: ModelConfig, p, batch: Dict[str, Any], *,
     the backward pass (``torch.utils.checkpoint``, the reference's
     ``jax.checkpoint`` of the scan body): the same operations run again, so
     the loss and the gradients keep their bits."""
-    _require_dense(cfg)
+    _require_decoder(cfg)
     tokens = batch["tokens"]
     B, T = tokens.shape
     x = embed_tokens(cfg, p, tokens)
     positions = torch.arange(T, device=tokens.device).expand(B, T)
-    n = cfg.num_layers
+    n = _n_scan(cfg)
     if attn_impl == "qchunked" and can_qchunk(cfg):
         g = attn_group_size(cfg)
         wins = [static_window_for(cfg, i % g, g) for i in range(n)]
     else:
         g, attn_impl = 1, "blocked"
         wins = _windows(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in p.get("dense_prefix", []):
+        x, _ = _dense_layer(cfg, blk, x, positions, None, kv_chunk=kv_chunk)
 
-    def group(x, l0):
+    def group(x, aux, l0):
         for l in range(l0, l0 + g):
-            x = _dense_layer(cfg, _layer(p["layers"], l), x, positions,
-                             wins[l], kv_chunk=kv_chunk, attn_impl=attn_impl)
-        return x
+            x, a = _dense_layer(cfg, _layer(p["layers"], l), x, positions,
+                                wins[l], kv_chunk=kv_chunk,
+                                attn_impl=attn_impl)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     for l0 in range(0, n, g):
         if remat and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(group, x, l0,
-                                                  use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(group, x, aux, l0,
+                                                       use_reentrant=False)
         else:
-            x = group(x, l0)
+            x, aux = group(x, aux, l0)
     x = L.apply_norm(cfg, p["final_norm"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, aux
     return unembed(cfg, p, x), aux
@@ -392,6 +468,10 @@ def cache_insert(cache: Cache, slot_cache: Cache, slot) -> Cache:
     src = torch.as_tensor(np.nonzero(keep)[0], device=dev)
     cache.k[:, dst] = slot_cache.k[:, src].to(cache.k.dtype)
     cache.v[:, dst] = slot_cache.v[:, src].to(cache.v.dtype)
+    for lists in ("prefix_k", "prefix_v"):
+        for c, sc in zip(getattr(cache, lists) or (),
+                         getattr(slot_cache, lists) or ()):
+            c[dst] = sc[src].to(c.dtype)
     torch.maximum(cache.pos, slot_cache.pos, out=cache.pos)
     return cache
 
@@ -409,11 +489,16 @@ def decode_step_paged(cfg: ModelConfig, p, cache: Cache, tokens, seq_lens,
     (k, v (L, NB, bs, KH, hd)): the new token's KV goes to pool row
     ``tables[b, pos // bs] * bs + pos % bs`` (pos = min(seq_len, nb*bs-1);
     a row outside the pool is dropped) and attention runs through
-    ``ops.paged_decode_attention_bt``.
+    ``ops.paged_decode_attention_bt`` (dense family only).
+
+    A MoE model runs its dense prefix first (global windows, its own
+    per-slot cache), then its MoE layers through ``moe.moe_decode``: every
+    lane routes, frozen ones too (their repeat token takes capacity, as in
+    the reference).
 
     Returns (logits (B, V), cache (updated in place), seq_lens + active).
     """
-    _require_dense(cfg)
+    (_require_decoder if tables is None else _require_dense)(cfg)
     a = cfg.attention
     B = tokens.shape[0]
     seq_lens = seq_lens.to(torch.int32)
@@ -435,11 +520,9 @@ def decode_step_paged(cfg: ModelConfig, p, cache: Cache, tokens, seq_lens,
         phys = tables.long().gather(1, (pos // bs)[:, None])[:, 0]
         src, at, any_kept = _pool_writes(phys * bs + pos % bs, NB * bs)
         lens_now = (seq_lens + 1).clamp(max=W)
-    for l, win in enumerate(_windows(cfg)):
-        lp = _layer(p["layers"], l)
+    for lp, win, kc, vc in _blocks(cfg, p, cache):
         h = L.apply_norm(cfg, lp["ln1"], x)
         q, k, v = L.attention_qkv(lp["attn"], h, a, q_pos)
-        kc, vc = cache.k[l], cache.v[l]
         kw = dict(window=win, softcap=a.logit_softcap, scale=a.attn_scale)
         if tables is None:
             kc[rows, idx] = k[:, 0].to(kc.dtype)
@@ -450,7 +533,8 @@ def decode_step_paged(cfg: ModelConfig, p, cache: Cache, tokens, seq_lens,
             _write_rows(vc.flatten(0, 1), src, at, any_kept, v[:, 0])
             o = OPS.paged_decode_attention_bt(q[:, 0], kc, vc, lens_now,
                                               tables, **kw)
-        x = _layer_tail(cfg, lp, x, L.attention_out(lp["attn"], o[:, None]))
+        x, _ = _layer_tail(cfg, lp, x, L.attention_out(lp["attn"], o[:, None]),
+                           decode=True)
     act_i = active.to(torch.int32)
     torch.maximum(cache.pos, (seq_lens + act_i).max(), out=cache.pos)
     x = L.apply_norm(cfg, p["final_norm"], x)
@@ -549,7 +633,7 @@ def prefill_suffix(cfg: ModelConfig, p, cache: Cache, tokens, start, valid,
             q, kf[gidx].reshape(B, W, KH, hd), vf[gidx].reshape(B, W, KH, hd),
             positions, kv_pos, window=win, softcap=a.logit_softcap,
             scale=a.attn_scale, kv_chunk=max(W, 1024))
-        x = _layer_tail(cfg, lp, x, L.attention_out(lp["attn"], o))
+        x, _ = _layer_tail(cfg, lp, x, L.attention_out(lp["attn"], o))
     x = L.apply_norm(cfg, p["final_norm"], x)
     last = (valid - 1).clamp(0, T - 1).long()
     x = x.gather(1, last[:, None, None].expand(B, 1, x.shape[-1]))
@@ -628,6 +712,7 @@ def decode_n(cfg: ModelConfig, p, cache: Cache, tokens, seq_lens, budget, *,
     lens = lens0 = torch.as_tensor(seq_lens, dtype=torch.int32, device=dev)
     pool = None
     if tables is not None:
+        _require_dense(cfg)
         tables = torch.as_tensor(tables, dtype=torch.int32, device=dev)
         pool, cache = cache, pool_view(cache, tables)
     produced = torch.zeros_like(budget)

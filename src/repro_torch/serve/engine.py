@@ -1,5 +1,6 @@
 """Batched serving engine of the port: incremental continuous batching +
-chunked decode (the dense fast path of ``repro/serve/engine.py``).
+chunked decode (the fast path of ``repro/serve/engine.py``, for the dense
+and MoE families).
 
   * **Incremental admission** — an admission wave prefills ONLY the
     admitted requests (``api.prefill_slot``: one prefill whose KV rows are
@@ -9,16 +10,23 @@ chunked decode (the dense fast path of ``repro/serve/engine.py``).
     prefix (the CUDA decode kernel on the card).
   * **Multi-step decode** — ``api.decode_n`` advances ``chunk`` steps with
     on-device token selection and done-masking; the host reads the tokens
-    once per chunk.  Greedy outputs are bitwise identical for any chunk.
+    once per chunk.  Greedy outputs are bitwise identical for any chunk,
+    with the reference's one caveat for MoE: admission lands on chunk
+    boundaries, so the chunk size can shift WHEN a freed slot's lane turns
+    from a frozen repeat token into a fresh request, and a saturated
+    expert's choice of which pair to drop sees those lanes.  Identical
+    admission schedules (uniform budgets, say) stay bitwise invariant.
 
 Kept from the reference on purpose: prompts are left-padded with token 0
 to ``prompt_len`` and the pads are attended as real tokens (``seq_lens`` is
 ``prompt_len`` after admission); a wave is padded to ``slots`` rows whose
 out-of-range slot index drops them (explicitly here, where JAX drops
-out-of-bounds scatter updates).
+out-of-bounds scatter updates).  The wave is one prefill dispatch, so a
+MoE layer's capacity counts its ``slots x prompt_len`` tokens, padding
+rows and pads included, as the reference's.
 
-``SliceSpec(kv_block > 0)`` serves from the pooled prefix-shared KV cache
-(``serve/kvpool.py``): each slot's cache rows are a block table over one
+``SliceSpec(kv_block > 0)`` serves the dense family from the pooled
+prefix-shared KV cache (``serve/kvpool.py``): each slot's cache rows are a block table over one
 pool, an admission whose prompt starts with blocks another request already
 prefilled maps them and prefills only the rest, left-aligned, in dispatches
 of a fixed ``(slots, suffix_len)`` shape (``api.prefill_suffix``), and
@@ -31,7 +39,8 @@ what the dequantised tree gives.
 The engine's counters (``prefill_flops_proxy``, the ``kv_*`` counts and the
 ``serve.chunk_s`` histogram) live in an ``obs.Telemetry`` registry under the
 reference's names and labels; the attributes are views of it.  The whisper
-legacy path and the non-dense families raise ``NotImplementedError``.
+legacy path and the families not yet ported raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -108,7 +117,7 @@ class ServeEngine:
     """Continuous-batching serving engine on one device.
 
     Args:
-      cfg: model config (dense family).
+      cfg: model config (dense or MoE family).
       params: param tree (JAX layout, see ``repro_torch.interop``) already
         on ``device``.
       spec: `SliceSpec` serving envelope.
@@ -129,9 +138,12 @@ class ServeEngine:
             raise NotImplementedError(
                 "the whisper legacy full-batch path waits for ROADMAP.md "
                 "queue 1, item 11")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r} waits for ROADMAP.md queue 1, item 11")
+        if spec.kv_block and cfg.family != "dense":
+            raise NotImplementedError(
+                "pooled prefix-shared KV is dense-transformer only")
         embed = params["embed"]
         pdev = (embed.q if isinstance(embed, Q.QTensor) else embed).device
         if pdev.type != self.device.type:

@@ -5,7 +5,8 @@ embedding kernels, DLRM training through both lookup routes (the fused
 scatter is the backward of each) against the CPU, the single-table
 lookup, the scatter of deduplicated ids and the int8 fused lookup, and
 the pooled block-table and int8-KV decode kernels with the pooled decode
-path of reduced olmo-1b.
+path of reduced olmo-1b, and the MoE dispatch and engine (reduced
+qwen3-moe and kimi-k2) on the card against the CPU.
 
 Every test needs an sm_90 card and skips elsewhere.  This file imports no
 JAX, so it runs where JAX is not installed:
@@ -58,6 +59,7 @@ from repro_torch.models import api
 from repro_torch.configs.base import OptimizerConfig, ParallelConfig
 from repro_torch.launch import steps as STEPS
 from repro_torch.models import dlrm as DL
+from repro_torch.models import moe as MOE
 from repro_torch.models import quant as QU
 from repro_torch.optim import adam as OPT
 from repro_torch.serve.engine import ServeEngine, SliceSpec
@@ -91,12 +93,16 @@ def _close(got, want):
                                rtol=RTOL)
 
 
-DECODE_CASES = [                            # (B, H, KH, S, d, lens), options
+ROW1_PINNED_CASES = [                       # (B, H, KH, S, d, lens), options
     ((2, 4, 4, 40, 16, [0, 40]), dict()),
     ((3, 8, 2, 64, 16, [0, 1, 64]), dict(window=8)),
     ((3, 4, 1, 48, 64, [5, 48, 0]), dict(softcap=5.0)),
     ((2, 16, 2, 300, 128, [300, 129]), dict(window=100, softcap=20.0)),
     ((8, 16, 16, 1024, 128, [0, 1, 100, 257, 512, 700, 1000, 1024]), dict()),
+]
+DECODE_CASES = ROW1_PINNED_CASES + [
+    # qwen3-moe-30b-a3b: 32 query heads over 4 KV heads ((H / KH) d = 1024)
+    ((8, 32, 4, 1024, 128, [0, 1, 100, 257, 512, 700, 1000, 1024]), dict()),
 ]
 
 
@@ -119,6 +125,7 @@ FLASH_CASES = [                             # (B, H, KH, T, S, d), options
     ((1, 8, 8, 1, 1, 128), dict()),
     ((2, 16, 4, 77, 77, 128), dict(window=20, scale=0.3)),
     ((8, 16, 16, 128, 128, 128), dict()),
+    ((8, 32, 4, 128, 128, 128), dict()),         # qwen3-moe's admission
     # several 64-key tiles: a window that starts inside a tile, GQA, softcap
     ((2, 8, 2, 256, 256, 128), dict(window=100, softcap=30.0)),
     ((1, 16, 4, 512, 512, 64), dict(window=200, softcap=10.0)),
@@ -189,6 +196,67 @@ def test_engine_greedy_chunk_invariant_on_card(card):
     assert DA.launches > d0 and FA.launches > f0
     for chunk in (3, 8):
         assert _serve(params, chunk, card) == ref
+
+
+def test_moe_dispatch_on_card_equals_cpu(card):
+    """The sorted dropping dispatch is index arithmetic and a fixed order
+    of bf16 adds: on the same routing the card's buffer, combine and
+    dropped fraction equal the CPU's bit for bit, at a capacity that drops
+    and one that does not.  Then ``moe_local`` of reduced qwen3-moe end
+    to end: the same experts chosen (bf16 router logits from cuBLAS and
+    from the CPU may tie differently only at a near tie), the same dropped
+    fraction, outputs within 2^-5 of the largest."""
+    cfg = registry.get_reduced("qwen3-moe-30b-a3b")
+    p = api.init_params(cfg, seed=0, device="cpu")["layers"]["moe"]
+    p = {k: v[0] for k, v in p.items()}
+    rng = np.random.default_rng(0)
+    x = _bf16(rng, "cpu", 64, cfg.d_model)
+    gates, eidx, _ = MOE.router_topk(cfg, p, x)
+    E = cfg.moe.num_experts
+    y = _bf16(rng, "cpu", E, 40, cfg.d_model)
+    for C in (5, 40):
+        want = MOE._dispatch_sorted(x, gates, eidx, E, C)
+        got = MOE._dispatch_sorted(x.to(card), gates.to(card),
+                                   eidx.to(card), E, C)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1](y[:, :C].to(card)).cpu(), want[1](y[:, :C]))
+        assert float(got[2]) == float(want[2])
+    pc = {k: v.to(card) for k, v in p.items()}
+    want = MOE.moe_local(cfg, p, x, capacity_factor=1.0)
+    got = MOE.moe_local(cfg, pc, x.to(card), capacity_factor=1.0)
+    _, ge, _ = MOE.router_topk(cfg, pc, x.to(card))
+    if torch.equal(ge.cpu(), eidx):
+        assert float(got[2]) == float(want[2])
+        tol = LOGIT_REL_TOL * want[0].float().abs().max().item()
+        torch.testing.assert_close(got[0].float().cpu(), want[0].float(),
+                                   atol=tol, rtol=0)
+    else:
+        lg = (x.float() @ p["router"].to(torch.bfloat16).float()).sort(
+            dim=1, descending=True).values
+        k = cfg.moe.top_k
+        moved = (ge.cpu().sort(1).values != eidx.sort(1).values).any(1)
+        margin = (lg[:, k - 1] - lg[:, k])[moved]
+        assert (margin < LOGIT_REL_TOL * lg.abs().max(1).values[moved]).all()
+
+
+def test_moe_engine_greedy_chunk_invariant_on_card(card):
+    """Reduced qwen3-moe and kimi-k2 through the engine on the card, rows 1
+    and 2 launched: uniform budgets give the same tokens at every chunk."""
+    for arch in ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"):
+        cfg = registry.get_reduced(arch)
+        params = api.init_params(cfg, seed=0, device=card)
+        outs = []
+        for chunk in (1, 3, 8):
+            eng = ServeEngine(cfg, params, SliceSpec(
+                slots=2, max_len=64, prompt_len=16, chunk=chunk), device=card)
+            rng = np.random.default_rng(0)
+            reqs = [eng.submit(rng.integers(0, 512, size=n),
+                               max_new_tokens=8) for n in (5, 16, 9, 12, 3)]
+            d0, f0 = DA.launches, FA.launches
+            eng.run()
+            assert DA.launches > d0 and FA.launches > f0
+            outs.append([list(r.out_tokens) for r in reqs])
+        assert outs[0] == outs[1] == outs[2]
 
 
 def _fused_inputs(rng, dev, dims, spec, B):
@@ -1013,8 +1081,8 @@ def test_decode_kernels_at_chunk_edges(card, shape, kw):
         q, kq, ks, vq, vs, lens, tables, **kw))
 
 
-# The per-slot bf16 decode kernel's bits: sha256 of `_row1_bits`' outputs,
-# from the split-KV kernel (chunks of 128 logical rows, per-lane running
+# The per-slot bf16 decode kernel's bits: sha256 of `_row1_bits`' outputs
+# over ROW1_PINNED_CASES, from the split-KV kernel (chunks of 128 logical rows, per-lane running
 # softmax states, chunks combined in order) built by nvcc 12.9 for sm_90a
 # and run on an H100.  A kernel change that moves these bits must update
 # the pin on purpose; the pooled and int8 bodies are held to it through
@@ -1026,7 +1094,7 @@ ROW1_SHA256 = ("c5ce02b66a73e6d489f3e9a5c2a38fd6"
 def _row1_bits(dev):
     import hashlib
     h = hashlib.sha256()
-    for (B, H, KH, S, d, lens), kw in DECODE_CASES:
+    for (B, H, KH, S, d, lens), kw in ROW1_PINNED_CASES:
         rng = np.random.default_rng(S)
         q, k, v = (_bf16(rng, dev, B, H, d), _bf16(rng, dev, B, S, KH, d),
                    _bf16(rng, dev, B, S, KH, d))
