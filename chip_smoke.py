@@ -208,6 +208,30 @@ each of which fails the run if it fails:
      bitwise equal, with the dropped fraction of the prefill and decode
      MoE calls; tokens/s, TTFT, ms a decode step, and the card's idle
      share over one profiled chunk.
+ 17. MoE training (run after phase 16, on an empty card): reduced
+     qwen3-moe and kimi-k2 card vs CPU with the same f32 weights and
+     batch: one step's gradients with the CPU's routes replayed on the
+     card, every leaf within 2^-5 of its largest |g|; without replay, each
+     fresh route split a near tie of the CPU's router logits (counted); 2
+     steps of sgd and of adafactor, routes replayed: each step's loss and
+     gradients within the same bars, and the card's update on the CPU's
+     gradients and state within 1e-6 of the CPU's.  Then full-width
+     qwen3-moe-30b-a3b cut to 4 layers (3,114,813,440 f32 parameters from
+     seed 0): before its optimizer state exists, one microbatch's loss and
+     gradients with remat, without, under
+     ``torch.use_deterministic_algorithms`` and again, bitwise equal (an op
+     PyTorch flags as nondeterministic fails the run); ``Slice.train`` on
+     phase 12's cell (train_2k: 8 microbatches of 1 x 2048, remat, xent
+     chunks of 256, Adam at lr 3e-4), 3 warm and 10 timed steps:
+     tokens/s, ms a step (median, spread), finite losses that fall from
+     the first, params that move, peak allocated < 72 GB, the dropped
+     fraction of the first and the last step, the idle share of one
+     profiled step, one step split into a microbatch's forward + backward
+     and Adam (its share of a step); ``Slice.serve`` of the trained params
+     cast to bf16 on the serve phase's 16 requests, rows 1 and 2 counted
+     (``launches_moe_trained``).  Then reduced qwen3-moe preempted at step
+     3 (``Slice.request_preempt``, checkpoints) and resumed on another
+     slice shape: losses and params bitwise an uninterrupted run's.
 
 Prints, last: a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and
@@ -2386,9 +2410,11 @@ def dense_train_phase(torch, np, cfg, CL, CKPT, RunConfig, ShapeConfig,
     # one more step, split: forward + backward of one microbatch, then Adam
     mb = {k: torch.as_tensor(v[:run.shape.global_batch // accum], device=dev)
           for k, v in sess.trainer.dataset.batch(state.step).items()}
+    grads = [None] * len(list(_leaves(state.params)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, grads = STEPS.value_and_grad(cfg, run.parallel, state.params, mb)
+    STEPS.accumulate_grad(cfg, run.parallel, state.params, mb, grads,
+                          1.0 / accum)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     _, opt, _ = OPT.apply(run.optimizer, state.params, grads,
@@ -2475,10 +2501,14 @@ def _losses(sess):
     return {m["step"]: m["loss"] for m in sess.metrics_log if "loss" in m}
 
 
-def step_bits(torch, cfg, run, STEPS, params, batch):
-    """Loss and gradients of one step, as a list of tensors."""
-    m, g = STEPS.value_and_grad(cfg, run.parallel, params, batch)
-    return [m["loss"]] + g
+def step_bits(torch, cfg, run, STEPS, params, batch, accum):
+    """Loss and gradient share of one microbatch, as a list of tensors:
+    what `make_train_step` adds into a step's fresh accumulator
+    (``STEPS.accumulate_grad`` at ``1 / accum``)."""
+    acc = [None] * len(list(_leaves(params)))
+    m = STEPS.accumulate_grad(cfg, run.parallel, params, batch, acc,
+                              1.0 / accum)
+    return [m["loss"]] + acc
 
 
 def fault_drill_phase(torch, cfg, CL, RunConfig, ShapeConfig,
@@ -2506,20 +2536,20 @@ def fault_drill_phase(torch, cfg, CL, RunConfig, ShapeConfig,
     state = sess.trainer.init_state()
     batch = {k: torch.as_tensor(v[:run.shape.global_batch // 2], device=dev)
              for k, v in sess.trainer.dataset.batch(0).items()}
-    a = step_bits(torch, cfg, run, STEPS, state.params, batch)
-    b = step_bits(torch, cfg, run, STEPS, state.params, batch)
+    a = step_bits(torch, cfg, run, STEPS, state.params, batch, 2)
+    b = step_bits(torch, cfg, run, STEPS, state.params, batch, 2)
     out["same_step_twice_bitwise"] = all(torch.equal(x, y)
                                          for x, y in zip(a, b))
     del b
     off = run.replace(parallel=dataclasses.replace(run.parallel,
                                                    remat="none"))
-    c = step_bits(torch, cfg, off, STEPS, state.params, batch)
+    c = step_bits(torch, cfg, off, STEPS, state.params, batch, 2)
     out["remat_on_equals_off_bitwise"] = all(torch.equal(x, y)
                                              for x, y in zip(a, c))
     del c
     # an op PyTorch knows to be nondeterministic raises in here
     with deterministic(torch):
-        d = step_bits(torch, cfg, run, STEPS, state.params, batch)
+        d = step_bits(torch, cfg, run, STEPS, state.params, batch, 2)
     out["deterministic_algorithms_equal"] = all(torch.equal(x, y)
                                                 for x, y in zip(a, d))
     del a, d, batch, state
@@ -3160,20 +3190,22 @@ def _kept_sets(np, e, capacity):
 @contextlib.contextmanager
 def route_log(np, MOE):
     """Record every MoE call of the port while inside: per call, each
-    token's chosen experts (sorted), its kept experts, and the margin
-    between its k-th and (k+1)-th router logits with that margin's bar."""
+    token's expert ids (as the router ranked them), its chosen experts
+    (sorted), its kept experts, and the margin between its k-th and
+    (k+1)-th router logits with that margin's bar."""
     calls = []
     topk, dispatch = MOE.router_topk, MOE._dispatch_sorted
 
     def rec_topk(cfg, p, x, dtype):
         g, e, a = topk(cfg, p, x, dtype)
-        lg = MOE._mm(x, p["router"], dtype).float()
+        lg = MOE._mm(x, p["router"], dtype).float().detach()
         if cfg.moe.router_softcap:
             c = cfg.moe.router_softcap
             lg = c * lg.div(c).tanh()
         srt = lg.sort(dim=1, descending=True).values.cpu().numpy()
         k = cfg.moe.top_k
-        calls.append(dict(chosen=np.sort(e.cpu().numpy(), 1),
+        calls.append(dict(ids=e.cpu().numpy(),
+                          chosen=np.sort(e.cpu().numpy(), 1),
                           margin=srt[:, k - 1] - srt[:, k],
                           bar=ROUTE_REL_TOL * np.abs(srt).max(1)))
         return g, e, a
@@ -3401,6 +3433,421 @@ def moe_phase(torch, np, F, registry, api, engine_mod, DA, FA, REF, MOE, TF,
     return out, launches
 
 
+# MoE training: full-width qwen3-moe-30b-a3b cut in depth to 4 layers
+# (3,114,813,440 f32 parameters; params, gradient, m and v 49.8 GB) on
+# the dense training cell (train_2k: 8 microbatches of 1 x 2048, remat,
+# xent chunks of 256, Adam at lr 3e-4)
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_PARAMS = 3_114_813_440
+MOE_TRAIN_MICROBATCHES = 8
+MOE_TRAIN_PEAK_LIMIT = 72e9
+# the reduced archs card vs CPU, and the preempt/resume on the card
+MOE_SMALL_SHAPE = ("moe_check", "train", 32, 4)
+MOE_PREEMPT_STEPS, MOE_PREEMPT_AT = 6, 3
+
+
+def replayed_router(torch, F, MOE, cfg, p, x, dtype, eidx):
+    """``MOE.router_topk`` with the expert ids ``eidx`` given: gates and
+    aux from this run's own probabilities."""
+    m = cfg.moe
+    logits = MOE._mm(x, p["router"], dtype).float()
+    if m.router_softcap:
+        logits = m.router_softcap * torch.tanh(logits / m.router_softcap)
+    probs = torch.softmax(logits, dim=-1)
+    gates = probs.gather(1, eidx)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    ce = F.one_hot(eidx[:, 0], m.num_experts).float().mean(dim=0)
+    return gates, eidx, m.num_experts * torch.sum(probs.mean(dim=0) * ce)
+
+
+@contextlib.contextmanager
+def route_replay(torch, F, MOE, calls):
+    """Every MoE call inside takes the next recorded call's expert ids (a
+    `route_log` list) instead of its own top-k."""
+    todo, topk = iter(calls), MOE.router_topk
+
+    def replay(cfg, p, x, dtype):
+        ids = torch.from_numpy(next(todo)["ids"]).long().to(x.device)
+        return replayed_router(torch, F, MOE, cfg, p, x, dtype, ids)
+
+    MOE.router_topk = replay
+    try:
+        yield
+    finally:
+        MOE.router_topk = topk
+    check(next(todo, None) is None, "route replay: a recorded call was not "
+                                    "replayed")
+
+
+def _grad_share(torch, got, want, what):
+    """max |got - want| of each leaf over LOGIT_REL_TOL x its largest
+    |want|; fails above 1 or where ``got`` is not finite.  Returns the
+    worst share."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        check(bool(torch.isfinite(a).all()), f"{what}: leaf {i} not finite")
+        tol = LOGIT_REL_TOL * b.abs().max().item()
+        err = (a - b).abs().max().item()
+        check(err <= tol, f"{what}: leaf {i} differs by {err:.4g} > "
+                          f"{tol:.4g}")
+        worst = max(worst, err / tol if tol else 0.0)
+    return worst
+
+
+def _loss_near(a, b):
+    return abs(a - b) <= 1e-3 + 2.0 ** -7 * abs(b)
+
+
+def _state_on(OPT, state, device):
+    def on(tree):
+        return None if tree is None else OPT.tree_map(
+            lambda t: t.clone().to(device), tree)
+    return OPT.OptState(state.step, on(state.mu), on(state.nu))
+
+
+def _optimizer_steps(torch, np, F, cfg, params, data, pcfg, ocfg, STEPS, OPT,
+                     MOE, what, dev):
+    """2 steps of ``ocfg`` from the same f32 params on the CPU and on the
+    card, each step's routes the CPU's (replayed on the card): each step's
+    loss within the curve bar and its gradients within LOGIT_REL_TOL;
+    before each update, the card's ``OPT.apply`` on the CPU's gradients
+    and state against the CPU's own, params and state within ADAM_RTOL
+    (the same f32 operations, the norm summed in another order).  Returns
+    the card's losses and the worst shares of each bar."""
+    pc = OPT.tree_map(lambda t: t.clone(), params)
+    pg = OPT.tree_map(lambda t: t.clone().to(dev), params)
+    sc, sg = OPT.init(ocfg, pc), OPT.init(ocfg, pg)
+    losses, g_worst, o_worst = [], 0.0, 0.0
+    for step in range(2):
+        b = {k: torch.as_tensor(v) for k, v in data.batch(step).items()}
+        with route_log(np, MOE) as calls:
+            mc, gc_ = STEPS.value_and_grad(cfg, pcfg, pc, b)
+        with route_replay(torch, F, MOE, calls):
+            mg, gg = STEPS.value_and_grad(cfg, pcfg, pg, _to(b, dev))
+        check(_loss_near(float(mg["loss"]), float(mc["loss"])),
+              f"{what} step {step}: card loss {float(mg['loss'])} vs CPU "
+              f"{float(mc['loss'])}")
+        losses.append(float(mg["loss"]))
+        g_worst = max(g_worst, _grad_share(
+            torch, gg, gc_, f"{what} step {step} gradients, routes "
+                            f"replayed"))
+        p_same = OPT.tree_map(lambda t: t.clone().to(dev), pc)
+        s_same = _state_on(OPT, sc, dev)
+        g_same = [g.clone().to(dev) for g in gc_]
+        OPT.apply(ocfg, p_same, g_same, s_same)
+        pc, sc, _ = OPT.apply(ocfg, pc, gc_, sc)
+        for x, y in zip(OPT.leaves([t for t in (p_same, s_same.mu, s_same.nu)
+                                    if t is not None]),
+                        OPT.leaves([t for t in (pc, sc.mu, sc.nu)
+                                    if t is not None])):
+            err = (x.cpu() - y).abs()
+            lim = ADAM_RTOL * (y.abs() + y.abs().max())
+            check(bool((err <= lim).all()), f"{what} step {step}: the "
+                  f"card's update differs by {err.max().item():.3e}")
+            o_worst = max(o_worst, float((err / lim).max()))
+        pg, sg, _ = OPT.apply(ocfg, pg, gg, sg)
+        del p_same, s_same, g_same
+    return {"losses": losses, "grad_worst_share_of_tol": g_worst,
+            "update_on_same_grads_worst_share_of_tol": o_worst}
+
+
+def moe_train_reference_phase(torch, np, F, registry, api, Dataset, STEPS,
+                              OPT, MOE, ShapeConfig, ParallelConfig,
+                              OptimizerConfig, dev="cuda"):
+    """Reduced qwen3-moe and kimi-k2 with the same f32 weights and batch on
+    the CPU and on the card.  One step's loss and gradients: with the
+    CPU's routes replayed on the card, every leaf within LOGIT_REL_TOL of
+    its largest |g|; without, each fresh route split a near tie of the
+    CPU's router logits (`route_splits`), counted.  Then 2 steps of sgd
+    and of adafactor, the CPU's routes replayed (`_optimizer_steps`)."""
+    out = {}
+    shape = ShapeConfig(*MOE_SMALL_SHAPE)
+    B, T = shape.global_batch, shape.seq_len
+    pcfg = ParallelConfig(remat="none")
+    for arch in MOE_REDUCED:
+        cfg = registry.get_reduced(arch)
+        p_cpu = api.init_params(cfg, seed=0, device="cpu",
+                                dtype=torch.float32)
+        p_gpu = _to(p_cpu, dev)
+        b_cpu = {k: torch.as_tensor(v)
+                 for k, v in Dataset(cfg, shape).batch(0).items()}
+        b_gpu = _to(b_cpu, dev)
+        with route_log(np, MOE) as cpu_calls:
+            m_cpu, g_cpu = STEPS.value_and_grad(cfg, pcfg, p_cpu, b_cpu)
+        with route_replay(torch, F, MOE, cpu_calls):
+            m_rep, g_rep = STEPS.value_and_grad(cfg, pcfg, p_gpu, b_gpu)
+        res = {"grad_worst_share_of_tol": _grad_share(
+            torch, g_rep, g_cpu, f"{arch} gradients, routes replayed")}
+        for k in ("loss", "aux"):
+            check(_loss_near(float(m_rep[k]), float(m_cpu[k])),
+                  f"{arch}: card {k} {float(m_rep[k])} vs CPU "
+                  f"{float(m_cpu[k])}")
+        with route_log(np, MOE) as gpu_calls:
+            m_own, _ = STEPS.value_and_grad(cfg, pcfg, p_gpu, b_gpu)
+        first = route_splits(np, cpu_calls, gpu_calls,
+                             f"{arch} training forward", B, T)
+        res.update(
+            route_splits=int(sum((w["chosen"] != g["chosen"]).any(1).sum()
+                                 for w, g in zip(cpu_calls, gpu_calls))),
+            rows_touched=int((first != NEVER).sum()), rows=B,
+            moe_calls=len(cpu_calls), loss_cpu=float(m_cpu["loss"]),
+            loss_card_replayed=float(m_rep["loss"]),
+            loss_card_own_routes=float(m_own["loss"]))
+        del g_rep, g_cpu
+        for opt in ("sgd", "adafactor"):
+            res[opt] = _optimizer_steps(
+                torch, np, F, cfg, p_cpu, Dataset(cfg, shape), pcfg,
+                OptimizerConfig(name=opt, lr=1e-3, warmup_steps=2), STEPS,
+                OPT, MOE, f"{arch} {opt}", dev)
+        out[arch] = res
+    return out
+
+
+def moe_train_phase(torch, np, cfg, CL, RunConfig, ShapeConfig,
+                    ParallelConfig, OptimizerConfig, TrainerState, STEPS,
+                    OPT, api, engine_mod, DA, FA, MOE, dev="cuda"):
+    """Full-width qwen3-moe-30b-a3b cut to 4 layers (f32 from seed 0):
+    first, before any optimizer state exists, one microbatch's loss and
+    gradients four ways (remat on, remat off, under
+    ``torch.use_deterministic_algorithms``, remat on again), all bitwise
+    equal; then ``Slice.train`` on the dense training cell for 3 warm and
+    10 timed steps (the dropped fraction of the first and the last step),
+    a profiled step, one step split into a microbatch's forward + backward
+    and Adam; then ``Slice.serve`` of the trained params cast to bf16 on
+    the serve phase's 16 requests, rows 1 and 2 counted."""
+    import dataclasses
+    check(torch.cuda.memory_allocated() < MOE_EMPTY_LIMIT,
+          f"{torch.cuda.memory_allocated()} bytes allocated before MoE "
+          f"training")
+    run = _dense_run(cfg, RunConfig, ShapeConfig, ParallelConfig,
+                     OptimizerConfig)
+    accum = STEPS.pick_accum_steps(cfg, run.shape,
+                                   xent_chunk=run.parallel.xent_chunk)
+    check(accum == MOE_TRAIN_MICROBATCHES,
+          f"MoE training: {accum} microbatches, want "
+          f"{MOE_TRAIN_MICROBATCHES}")
+    sc = CL.Supercomputer(device=dev)
+    sl = sc.allocate((8, 8, 8))
+    sess = sl.train(run)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the Trainer's own init (its seed, f32 master weights), without m, v
+    params = api.init_params(cfg, seed=run.seed, device=dev,
+                             dtype=torch.float32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(n_params == MOE_TRAIN_PARAMS, f"MoE training: {n_params} params")
+    out = {"layers": cfg.num_layers, "params": n_params,
+           "shape": list(DENSE_SHAPE), "microbatches": accum,
+           "xent_chunk": DENSE_XENT_CHUNK, "remat": run.parallel.remat,
+           "init_s": init_s}
+    # -- one microbatch four ways, bitwise
+    mb = {k: torch.as_tensor(v[:run.shape.global_batch // accum], device=dev)
+          for k, v in sess.trainer.dataset.batch(0).items()}
+    torch.cuda.reset_peak_memory_stats()
+    ref = step_bits(torch, cfg, run, STEPS, params, mb, accum)
+    off = run.replace(parallel=dataclasses.replace(run.parallel,
+                                                   remat="none"))
+    same = {}
+    for name, r, det in (("remat_off", off, False),
+                         ("deterministic_algorithms", run, True),
+                         ("again", run, False)):
+        with (deterministic(torch) if det else contextlib.nullcontext()):
+            other = step_bits(torch, cfg, r, STEPS, params, mb, accum)
+        same[name] = all(torch.equal(x, y) for x, y in zip(ref, other))
+        del other
+    out["bitwise"] = dict(same, depth=cfg.num_layers, microbatch=[
+        run.shape.global_batch // accum, run.shape.seq_len],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(all(same.values()), f"MoE training: one step is not bitwise "
+                              f"repeatable on the card: {same}")
+    del ref, mb
+    # -- training through Slice.train
+    state = TrainerState(params, OPT.init(run.optimizer, params), 0)
+    del params
+    probes = [state.params["embed"][:1024],
+              state.params["layers"]["attn"]["wq"][0, :64],
+              state.params["layers"]["moe"]["router"][-1],
+              state.params["layers"]["moe"]["wg"][-1, 0, :64]]
+    before = [t.clone() for t in probes]
+    drops = []
+    ep = MOE.moe_ep
+
+    def counted(*a, **kw):
+        res = ep(*a, **kw)
+        drops[-1].append(res[2])
+        return res
+
+    steps = DENSE_WARM + DENSE_TIMED
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for i in range(steps):
+        watch = i in (0, steps - 1)
+        if watch:
+            drops.append([])
+            MOE.moe_ep = counted
+        t0 = time.perf_counter()
+        try:
+            sess.run(i + 1, state=state if i == 0 else None, log_every=1)
+            torch.cuda.synchronize()
+        finally:
+            MOE.moe_ep = ep
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    state = sess.state
+    losses = [m["loss"] for m in sess.metrics_log]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"MoE training: losses {losses}")
+    check(losses[-1] < losses[0], f"MoE training: the loss did not fall "
+                                  f"from its first value: {losses}")
+    moved = [not torch.equal(a, b) and bool(torch.isfinite(b).all())
+             for a, b in zip(before, probes)]
+    check(all(moved), f"MoE training: params moved {moved}")
+    static = 4 * 4 * n_params               # f32 params, gradient, m, v
+    check(peak < MOE_TRAIN_PEAK_LIMIT,
+          f"MoE training: peak allocated {peak / 1e9:.2f} GB over "
+          f"{MOE_TRAIN_PEAK_LIMIT / 1e9:.0f} GB")
+    dropped = [float(torch.stack(d).mean()) for d in drops]
+    timed = step_s[DENSE_WARM:]
+    med = sorted(timed)[len(timed) // 2]
+    prof = profile_busy(torch, lambda: sess.run(sess.state.step + 1,
+                                                log_every=1), top=25)
+    state = sess.state
+    # one more step, split: forward + backward of one microbatch, then Adam
+    mb = {k: torch.as_tensor(v[:run.shape.global_batch // accum], device=dev)
+          for k, v in sess.trainer.dataset.batch(state.step).items()}
+    grads = [None] * len(list(_leaves(state.params)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    STEPS.accumulate_grad(cfg, run.parallel, state.params, mb, grads,
+                          1.0 / accum)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    OPT.apply(run.optimizer, state.params, grads, state.opt_state)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del grads, mb
+    tokens = run.shape.global_batch * run.shape.seq_len
+    out.update(
+        losses=losses, steps_warm=DENSE_WARM, steps_timed=DENSE_TIMED,
+        ms_per_step=[t * 1e3 for t in step_s], median_ms_per_step=med * 1e3,
+        spread_ms=[min(timed) * 1e3, max(timed) * 1e3],
+        tokens_per_s=tokens * len(timed) / sum(timed),
+        peak_mem_gb=peak / 1e9, static_state_gb=static / 1e9,
+        dropped_first_step=dropped[0], dropped_last_step=dropped[1],
+        moe_calls_a_step=[len(d) for d in drops], profile_step=prof,
+        step_split={"fwd_bwd_microbatch_ms": (t1 - t0) * 1e3,
+                    "adam_ms": (t2 - t1) * 1e3,
+                    "adam_share_of_median_step": (t2 - t1) / med})
+    # -- serve the trained weights, in bf16
+    bf16 = OPT.tree_map(lambda t: t.to(torch.bfloat16), state.params)
+    del state, probes, before
+    sess.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = engine_mod.SliceSpec(**SERVE_SPEC)
+    _, prompts = serve_trace(np, cfg.vocab_size)
+    serve = sl.serve(cfg, bf16, spec)
+    reqs = [serve.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
+            for p in prompts]
+    torch.cuda.synchronize()
+    DA.launches = FA.launches = 0
+    sstats = serve.run()
+    launches = {"paged_decode_attention": DA.launches,
+                "flash_attention": FA.launches}
+    check(sstats["requests_done"] == len(prompts)
+          and all(r.done and len(r.out_tokens) == SERVE_NEW_TOKENS
+                  and all(0 <= t < cfg.vocab_size for t in r.out_tokens)
+                  for r in reqs),
+          f"serving the trained MoE weights: {sstats['requests_done']} of "
+          f"{len(prompts)} requests")
+    check(all(v > 0 for v in launches.values()),
+          f"serving the trained MoE weights: launches {launches}")
+    sl.free()
+    del bf16, serve, reqs
+    out["serve"] = {k: sstats[k] for k in ("requests_done", "tokens",
+                                           "tokens_per_s", "mean_ttft_s",
+                                           "decode_steps")}
+    out["launches"] = launches
+    return out, launches
+
+
+def moe_preempt_phase(torch, registry, CL, RunConfig, ShapeConfig,
+                      ParallelConfig, OptimizerConfig, OPT, dev="cuda"):
+    """Reduced qwen3-moe on the card with checkpoints (remat, xent chunks
+    of 8, 2 microbatches a step): a clean run of 6 steps, and a run that
+    ``Slice.request_preempt`` stops at step 3, resumed on a slice of
+    another shape; losses and final params bitwise the clean run's."""
+    import shutil
+    import tempfile
+    cfg = registry.get_reduced(MOE_ARCH)
+    run = RunConfig(model=cfg, shape=ShapeConfig(*MOE_SMALL_SHAPE),
+                    parallel=ParallelConfig(remat="block", xent_chunk=8),
+                    optimizer=OptimizerConfig(lr=1e-3, warmup_steps=2))
+    sc = CL.Supercomputer(device=dev)
+    d = tempfile.mkdtemp(prefix="moe_preempt_")
+    try:
+        clean = sc.allocate((8, 8, 8))
+        ref = clean.train(run, MOE_PREEMPT_STEPS, accum_steps=2, log_every=1)
+        first = sc.allocate((8, 8, 8))
+        sess = first.train(run, ckpt_dir=d, accum_steps=2)
+        sess.run(MOE_PREEMPT_AT, log_every=1)
+        first.request_preempt()
+        sess.run(MOE_PREEMPT_STEPS, log_every=1)
+        check(sess.preempted and sess.state.step == MOE_PREEMPT_AT,
+              f"MoE preempt: stopped at {sess.state.step}, preempted "
+              f"{sess.preempted}")
+        first.free()
+        second = sc.allocate((4, 8, 8))
+        resumed = second.train(run, MOE_PREEMPT_STEPS, ckpt_dir=d,
+                               accum_steps=2, log_every=1)
+        want = _losses(ref)
+        curve = {**_losses(sess), **_losses(resumed)}
+        check(len(want) == MOE_PREEMPT_STEPS and curve == want,
+              f"MoE preempt/resume: losses {curve} differ from the clean "
+              f"run's {want}")
+        check(all(torch.equal(x, y) for x, y in
+                  zip(OPT.leaves(resumed.params), OPT.leaves(ref.params))),
+              "MoE preempt/resume: final params differ from the clean run's")
+        second.free()
+        clean.free()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return {"steps": MOE_PREEMPT_STEPS, "preempt_at": MOE_PREEMPT_AT,
+            "resumed_on": second.describe(), "bitwise": True,
+            "losses": [want[s] for s in sorted(want)]}
+
+
+def moe_training_phases(torch, np, F, registry, api, Dataset, CL, STEPS,
+                        OPT, MOE, TrainerState, RunConfig, ShapeConfig,
+                        ParallelConfig, OptimizerConfig, engine_mod, DA, FA,
+                        dev="cuda"):
+    """Phase 17: MoE training.  The reduced archs card vs CPU (sgd and
+    adafactor too), full-width qwen3-moe cut to 4 layers trained and
+    served, then a preempt/resume of the reduced qwen3-moe."""
+    t_phase = time.perf_counter()
+    reference = moe_train_reference_phase(
+        torch, np, F, registry, api, Dataset, STEPS, OPT, MOE, ShapeConfig,
+        ParallelConfig, OptimizerConfig, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = registry.get_config(MOE_ARCH).replace(num_layers=MOE_TRAIN_LAYERS)
+    train, launches = moe_train_phase(
+        torch, np, cfg, CL, RunConfig, ShapeConfig, ParallelConfig,
+        OptimizerConfig, TrainerState, STEPS, OPT, api, engine_mod, DA, FA,
+        MOE, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    preempt = moe_preempt_phase(torch, registry, CL, RunConfig, ShapeConfig,
+                                ParallelConfig, OptimizerConfig, OPT, dev)
+    return dict(reference=reference, train=train, preempt=preempt,
+                phase_s=time.perf_counter() - t_phase), launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3455,7 +3902,7 @@ def main(argv=None):
     from repro_torch.optim import adam as OPT
     from repro_torch.serve import engine as engine_mod
     from repro_torch.train import checkpoint as CKPT
-    from repro_torch.train.trainer import Trainer
+    from repro_torch.train.trainer import Trainer, TrainerState
 
     # the plain versions compute f32 products: keep TF32 out of them
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3494,6 +3941,13 @@ def main(argv=None):
                                   DA, FA, REF, MOE, TF)
     log("moe:", json.dumps(moe))
     gc.collect()                    # its 61 GB of weights
+    torch.cuda.empty_cache()
+    moe_train, moe_train_launches = moe_training_phases(
+        torch, np, F, registry, api, Dataset, CL, STEPS, OPT, MOE,
+        TrainerState, RunConfig, ShapeConfig, ParallelConfig,
+        OptimizerConfig, engine_mod, DA, FA)
+    log("moe training:", json.dumps(moe_train))
+    gc.collect()                    # its 49.8 GB of training state
     torch.cuda.empty_cache()
     stats, launches = serve_phase(torch, np, registry.get_config("olmo-1b"),
                                   api, engine_mod, DA, FA)
@@ -3607,6 +4061,10 @@ def main(argv=None):
     # full-width qwen3-moe served (H = 32 over KH = 4)
     decode["launches_moe"] = moe_launches["paged_decode_attention"]
     prefill["launches_moe"] = moe_launches["flash_attention"]
+    # the trained 4-layer qwen3-moe served
+    decode["launches_moe_trained"] = moe_train_launches[
+        "paged_decode_attention"]
+    prefill["launches_moe_trained"] = moe_train_launches["flash_attention"]
     fused, gather = (dlrm_kern[DLRM_BATCH][n]
                      for n in ("fused_lookup", "embedding_gather"))
     fused["launches"] = dlrm_launches["fused_lookup"]
@@ -3624,7 +4082,8 @@ def main(argv=None):
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     more = ("launches_hot", "launches_keys", "launches_pooled_engine",
             "launches_int8_engine", "launches_trained_serve",
-            "launches_fleet", "launches_mixed", "launches_moe")
+            "launches_fleet", "launches_mixed", "launches_moe",
+            "launches_moe_trained")
     kernels = {"kernels": [{k: kern[k] for k in keys}
                            | {k: kern[k] for k in more if k in kern}
                            for kern in (decode, pooled["q8"], pooled["bt"],
@@ -3653,6 +4112,7 @@ def main(argv=None):
                  per_table_training=per_table,
                  dense_training=dense, fault_drill=drill,
                  fleet=fleet, mixed_tenancy=mixed, moe=moe,
+                 moe_training=moe_train,
                  **kernels), indent=2))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

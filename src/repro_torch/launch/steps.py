@@ -1,19 +1,20 @@
 """The train step (port of ``repro/launch/steps.py``, one device).
 
 ``make_train_step`` builds the step `Trainer` runs: the loss and its
-gradient (``torch.autograd.grad`` with respect to detached views of the
-params, so the params themselves never require a gradient and nothing is
-accumulated into a ``.grad``), gradient-accumulation microsteps, then the
-in-place optimizer update.  The metrics dict has the reference's keys.
-The dense family's loss is the token cross-entropy, whole or chunked
-(``ParallelConfig.xent_chunk``), with per-layer remat.
+gradient with respect to detached views of the params (so the params
+themselves never require a gradient), a backward that adds each
+microbatch's share straight into the f32 accumulator (`accumulate_grad`,
+one microbatch or several), then the in-place optimizer update.  The
+metrics dict has the reference's keys.  A decoder's loss (the dense and MoE families) is the token cross-entropy,
+whole or chunked (``ParallelConfig.xent_chunk``), plus 0.01 x the MoE
+load-balance loss, with per-layer remat; the DLRM's is its BCE.
 
 Not ported yet: the serving step functions, and compressed gradient
 exchange (``grad_compression != "none"``, queue 1, item 12).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -71,11 +72,14 @@ def loss_fn(cfg: ModelConfig, params, batch,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (loss, metrics).
 
-    Dense: token cross-entropy of the teacher-forced `api.forward` (plus
-    0.01 x aux, 0 for the dense family), with ``pcfg.remat`` ("none" or
+    Dense and MoE: token cross-entropy of the teacher-forced
+    `api.forward` plus 0.01 x aux (the MoE layers' load-balance losses
+    summed; 0 for the dense family), with ``pcfg.remat`` ("none" or
     per-layer recompute), ``pcfg.attn_impl`` and, when ``pcfg.xent_chunk``
     is set, the chunked cross-entropy over the final hidden states;
-    metrics ``loss`` (the cross-entropy) and ``aux``.
+    metrics ``loss`` (the cross-entropy) and ``aux``.  A MoE layer's
+    capacity counts the tokens of the batch it is given (a microbatch
+    under accumulation), as the reference's.
 
     DLRM: the mean BCE, through the lookup route ``pcfg.emb_pipeline``
     picks (the reference's ``ctx.emb_pipeline``: fused by default, per
@@ -84,7 +88,7 @@ def loss_fn(cfg: ModelConfig, params, batch,
         from repro_torch.models import dlrm as DL
         loss, _ = DL.loss_fn(cfg, params, batch, fused=pcfg.emb_pipeline)
         return loss, {"loss": loss}
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"training the {cfg.family!r} family waits for ROADMAP.md "
             f"queue 1, item 11")
@@ -131,14 +135,79 @@ def wire_bytes(grads) -> Dict[str, int]:
 
 def value_and_grad(cfg: ModelConfig, pcfg: ParallelConfig, params, batch
                    ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
-    """(metrics of `loss_fn`, gradients in ``OPT.leaves(params)`` order).
-    The loss is taken of detached views of the param leaves (same
-    storage), so ``params`` never require a gradient: a tree handed to the
-    serving engine records no graph."""
-    views = OPT.tree_map(lambda p: p.detach().requires_grad_(True), params)
+    """(metrics of `loss_fn`, f32 gradients in ``OPT.leaves(params)``
+    order): `accumulate_grad` at scale 1 into a fresh accumulator, the
+    path every train step takes.  ``params`` never require a gradient: a
+    tree handed to the serving engine records no graph."""
+    grads: List[Optional[torch.Tensor]] = [None] * len(OPT.leaves(params))
+    metrics = accumulate_grad(cfg, pcfg, params, batch, grads, 1.0)
+    return metrics, grads
+
+
+def _view(p, a, i, late):
+    """A detached view of ``p`` that requires a gradient, with ``a`` (its
+    accumulator slice) as its ``.grad`` where both are f32; otherwise
+    (view, ``a``, or ``i`` when ``a`` is None) goes on ``late``."""
+    v = p.detach().requires_grad_(True)
+    if a is not None and p.dtype == torch.float32:
+        v.grad = a
+    else:
+        late.append((v, i if a is None else a))
+    return v
+
+
+def _views_into(t, s, acc: List[Optional[torch.Tensor]], index, late):
+    """Detached views of the param leaves of ``t`` (same storage) that
+    require a gradient, each with its entry of the accumulator ``acc``
+    (f32, in ``OPT.leaves`` order; ``index`` counts the leaves) as its
+    ``.grad`` where both are f32, so autograd adds into it in place.  A
+    leaf the model stacks by layer (True in ``s``, from `api.stacked`)
+    becomes the list of its per-layer views, each with its slice of the
+    accumulator (allocated here when its entry is None), so each layer's
+    gradient lands the moment autograd has it, with no gradient of the
+    whole stack in between.  An unstacked leaf whose entry is None keeps
+    no ``.grad``: autograd hands it its own gradient, with no zeroed
+    buffer beside it.  ``late`` collects the views `accumulate_grad`
+    finishes after the backward.  (Module-level, not a closure: a
+    recursive closure is a reference cycle, which would keep the views,
+    and their gradients, alive until the next garbage collection.)"""
+    if isinstance(t, dict):
+        return {k: _views_into(t[k], s[k], acc, index, late)
+                for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_views_into(v, f, acc, index, late)
+                       for v, f in zip(t, s))
+    i = next(index)
+    if not s:
+        return _view(t, acc[i], i, late)
+    if acc[i] is None:
+        acc[i] = torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+    return [_view(t[l], acc[i][l], i, late) for l in range(t.shape[0])]
+
+
+def accumulate_grad(cfg: ModelConfig, pcfg: ParallelConfig, params, batch,
+                    acc: List[Optional[torch.Tensor]], scale: float
+                    ) -> Dict[str, torch.Tensor]:
+    """Adds ``scale`` x the gradient of `loss_fn` into ``acc`` (f32, in
+    ``OPT.leaves(params)`` order; an entry that is None is filled with the
+    leaf's share) in place, each leaf's share as autograd finishes it (the
+    views' ``.grad`` are ``acc``'s slices), and returns the metrics.  The
+    backward starts from ``scale``, so for a power of two each share is
+    the gradient divided by ``1 / scale`` bit for bit, and the sum is the
+    reference's ``acc + g / accum``; the memory is the accumulator's and
+    one layer's gradient, not a whole second gradient."""
+    late: List[Tuple[torch.Tensor, Any]] = []
+    views = _views_into(params, api.stacked(cfg, params), acc,
+                        iter(range(len(acc))), late)
     loss, metrics = loss_fn(cfg, views, batch, pcfg)
-    grads = torch.autograd.grad(loss, OPT.leaves(views))
-    return {k: v.detach() for k, v in metrics.items()}, list(grads)
+    torch.autograd.backward(loss, torch.full_like(loss, scale))
+    for v, a in late:
+        g = v.grad if v.grad is not None else torch.zeros_like(v)
+        if isinstance(a, int):
+            acc[a] = g.float()
+        else:
+            a.add_(g.float())
+    return {k: v.detach() for k, v in metrics.items()}
 
 
 def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
@@ -156,25 +225,23 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
                                             xent_chunk=pcfg.xent_chunk)
 
     def accumulated(params, batch) -> Tuple[List[torch.Tensor], Dict]:
+        acc: List[Optional[torch.Tensor]] = [None] * len(OPT.leaves(params))
         if accum == 1:
-            metrics, grads = value_and_grad(cfg, pcfg, params, batch)
-            return grads, metrics
+            # the microbatch's own metrics, as the reference logs them
+            return acc, accumulate_grad(cfg, pcfg, params, batch, acc, 1.0)
         B = shape.global_batch
         if B % accum:
             raise ValueError(f"batch {B} is not a multiple of accum_steps "
                              f"{accum}")
         mb = B // accum
-        acc: Optional[List[torch.Tensor]] = None
         loss = 0.0
         for i in range(accum):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            m, g = value_and_grad(cfg, pcfg, params, part)
-            if acc is None:
-                acc = [torch.zeros(x.shape, dtype=torch.float32,
-                                   device=x.device) for x in g]
-            for a, b in zip(acc, g):
-                a.add_(b.float() / accum)
-            loss = loss + m["loss"] / accum
+            m = accumulate_grad(cfg, pcfg, params, part, acc, 1.0 / accum)
+            # the reference accumulates the loss it differentiates:
+            # ce + 0.01 x aux
+            total = m["loss"] + 0.01 * m["aux"] if "aux" in m else m["loss"]
+            loss = loss + total / accum
         return acc, {"loss": loss}
 
     def train_step(params, opt_state, batch):

@@ -4,11 +4,15 @@
         --reduced --device cpu --steps 20 --batch 8 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm0 \
         --reduced --device cpu --steps 20 --batch 64
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch qwen3-moe-30b-a3b --reduced --device cpu --steps 20 \
+        --batch 8 --seq 64 --optimizer adafactor
 
-trains on the card by default (``--device cpu`` for the CPU) with Adam
-and prints one JSON line of metrics per logged step, as
-``repro.launch.train`` does; ``--ckpt-dir`` checkpoints every
-``--ckpt-every`` steps and resumes from the latest checkpoint there.
+trains on the card by default (``--device cpu`` for the CPU) with
+``--optimizer`` (adam, sgd or adafactor, as the reference offers) and
+prints one JSON line of metrics per logged step, as ``repro.launch.train``
+does; ``--ckpt-dir`` checkpoints every ``--ckpt-every`` steps and resumes
+from the latest checkpoint there.
 """
 import argparse
 import json
@@ -31,6 +35,8 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--remat", default="none", choices=["none", "block"])
+    ap.add_argument("--optimizer", default="adam",
+                    choices=["adam", "sgd", "adafactor"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -41,7 +47,7 @@ def main(argv=None):
         model=cfg,
         shape=ShapeConfig("cli", "train", seq, args.batch),
         parallel=ParallelConfig(remat=args.remat),
-        optimizer=OptimizerConfig(lr=args.lr,
+        optimizer=OptimizerConfig(name=args.optimizer, lr=args.lr,
                                   warmup_steps=max(args.steps // 10, 1)))
     trainer = Trainer(run, device=args.device, ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every)

@@ -1,8 +1,8 @@
 """Family-dispatching model API of the port (``repro/models/api.py``).
 
-The dense family trains (`forward`) and serves (prefill, decode); the MoE
-family serves (`init_params`, `forward`, prefill, `decode_n`; not the
-pooled KV cache, as in the reference); the DLRM family scores and trains
+The dense and MoE families train (`forward`, with the aux loss the MoE
+layers sum) and serve (prefill, decode; the MoE family not on the pooled
+KV cache, as in the reference); the DLRM family scores and trains
 (`init_params`, `forward`, `make_batch`).  Every other family, and every
 entry point a family does not have yet, raises ``NotImplementedError``
 naming its ROADMAP.md item.  Entry points that create tensors take
@@ -94,6 +94,16 @@ def forward(cfg: ModelConfig, p, batch, **kw):
     if cfg.family == "dlrm":
         return DL.forward(cfg, p, batch, **kw)
     return TF.forward(cfg, p, batch, **kw)
+
+
+def stacked(cfg: ModelConfig, p):
+    """``p``'s tree with True at each leaf stacked by layer along dim 0 and
+    False elsewhere (`launch.steps` takes a stacked leaf's gradient layer
+    by layer): a decoder's ``p["layers"]`` (``transformer.stacked``); the
+    DLRM stacks nothing."""
+    if cfg.family in ("dense", "moe"):
+        return TF.stacked(p)
+    return TF.fill(p, False)
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, *, seed: int = 0,

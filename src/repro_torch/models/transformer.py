@@ -113,6 +113,23 @@ def _layer(tree, l: int):
     return tree[l]
 
 
+def fill(tree, value):
+    """``tree``'s nesting with ``value`` at every leaf."""
+    if isinstance(tree, dict):
+        return {k: fill(v, value) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(fill(v, value) for v in tree)
+    return value
+
+
+def stacked(p):
+    """``p``'s tree with True at the leaves stacked by layer along dim 0
+    (those of ``p["layers"]``) and False elsewhere.  In place of a stacked
+    leaf, `forward` also takes the list of its per-layer slices: `_layer`
+    indexes either alike."""
+    return {k: fill(v, k == "layers") for k, v in p.items()}
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------

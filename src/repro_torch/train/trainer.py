@@ -6,9 +6,10 @@ one device).
 ``launch/steps.make_train_step`` and logs the reference's metrics every
 ``log_every`` steps into the ``train.metrics`` series of its
 ``obs.Telemetry`` (`metrics_log` is a view of it), inside a ``train.step``
-span.  Params and optimizer state are updated in place.  The dense family
-trains f32 master weights (cast to bf16 at each use); the DLRM trains
-through the lookup route ``run.parallel.emb_pipeline`` picks.
+span.  Params and optimizer state are updated in place.  The decoder
+families (dense and MoE) train f32 master weights (cast to bf16 at each
+use); the DLRM trains through the lookup route ``run.parallel.emb_pipeline``
+picks.
 
 With ``ckpt_dir`` it checkpoints every ``ckpt_every`` steps and at the end
 (``train/checkpoint.py``, the reference's format v2: a checkpoint of either
@@ -71,7 +72,7 @@ class Trainer:
                  slice_dims: Optional[tuple] = None,
                  obs: Optional[Telemetry] = None,
                  obs_labels: Optional[Dict[str, Any]] = None):
-        if run.model.family not in ("dense", "dlrm"):
+        if run.model.family not in ("dense", "moe", "dlrm"):
             raise NotImplementedError(
                 f"training the {run.model.family!r} family waits for "
                 f"ROADMAP.md queue 1, item 11")
@@ -100,9 +101,10 @@ class Trainer:
     # -- state ------------------------------------------------------------------
 
     def _param_dtype(self):
-        # the dense family trains f32 master weights (the reference's
+        # a decoder trains f32 master weights (the reference's
         # param_dtype); a DLRM's params are f32 anyway
-        return torch.float32 if self.run.model.family == "dense" else None
+        return (torch.float32 if self.run.model.family in ("dense", "moe")
+                else None)
 
     def init_state(self) -> TrainerState:
         """Fresh params + optimizer state at step 0 (seeded by the run)."""

@@ -3,7 +3,8 @@ the run-level configs, ``data/synthetic.Dataset`` (bitwise), Adam
 (``optim/adam.py``), the first step's gradients and a 5-step loss curve
 through ``launch/steps.make_train_step`` and ``train/trainer.Trainer``,
 the ``repro_torch.launch.train`` CLI, and the paths that are not ported
-yet (each raises ``NotImplementedError`` naming its ROADMAP.md item).
+yet (each raises ``NotImplementedError`` naming its ROADMAP.md item); sgd
+and adafactor build the reference's state layout.
 
 Inputs come from numpy seeds; JAX params come over through
 ``repro_torch.interop``.  Tolerances:
@@ -16,6 +17,8 @@ Inputs come from numpy seeds; JAX params come over through
   * the loss curve: within 1e-3 + 2^-7 |loss| at every step.
 """
 import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -193,12 +196,26 @@ def test_adam_bf16_state_keeps_its_dtype():
 
 @pytest.mark.parametrize("name", ["sgd", "adafactor"])
 def test_unported_optimizers_name_their_item(name):
-    cfg = TOpt(name=name)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TOPT.init(cfg, {"w": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TOPT.apply(cfg, {"w": torch.zeros(2)}, {"w": torch.zeros(2)},
-                   TOPT.OptState(0, None, None))
+    """sgd and adafactor are ported (item 7): each builds the reference's
+    state layout (held against its apply in tests/test_torch_optim.py)
+    and steps in place."""
+    cfg = TOpt(name=name, warmup_steps=1)
+    p = {"w": torch.ones(3, 2), "b": torch.ones(2), "e": torch.ones(4, 3, 2)}
+    st = TOPT.init(cfg, p)
+    if name == "sgd":
+        assert st.nu is None
+        assert {k: tuple(v.shape) for k, v in st.mu.items()} == \
+            {"w": (3, 2), "b": (2,), "e": (4, 3, 2)}
+    else:
+        assert st.mu is None
+        assert {k: {f: tuple(t.shape) for f, t in v.items()}
+                for k, v in st.nu.items()} == \
+            {"w": {"vr": (3,), "vc": (2,)}, "b": {"v": (2,)},
+             "e": {"vr": (4, 3), "vc": (4, 2)}}
+    ptrs = [x.data_ptr() for x in TOPT.leaves(p)]
+    p2, st2, _ = TOPT.apply(cfg, p, TOPT.tree_map(torch.ones_like, p), st)
+    assert st2.step == 1 and [x.data_ptr() for x in TOPT.leaves(p2)] == ptrs
+    assert all((x < 1).all() for x in TOPT.leaves(p2))
 
 
 # -- the train step ------------------------------------------------------------
@@ -374,25 +391,51 @@ def test_dlrm_preempt_and_resume_is_bitwise(dlrm, tmp_path):
 
 # -- what is not ported yet ----------------------------------------------------
 
+@pytest.mark.parametrize("fused", [True, False])
+def test_gradient_views_die_with_the_call(dlrm, fused, monkeypatch):
+    """``steps.value_and_grad`` keeps none of its detached param views
+    once it returns, with the cyclic garbage collector off: a view that
+    lived on would keep its ``.grad`` (a row space's gradient, as large
+    as the tables) alive into the next step."""
+    tcfg, B = dlrm["tcfg"], dlrm["B"]
+    views = []
+    view = TSTEPS._view
+
+    def kept(*a):
+        v = view(*a)
+        views.append(weakref.ref(v))
+        return v
+
+    monkeypatch.setattr(TSTEPS, "_view", kept)
+    tp = interop.params_from_numpy(dlrm["npp"])
+    nb = _batch(tcfg, B, 0, False)
+    gc.disable()
+    try:
+        _, grads = TSTEPS.value_and_grad(
+            tcfg, TPar(remat="none", emb_pipeline=fused), tp,
+            {k: torch.as_tensor(v) for k, v in nb.items()})
+        alive = [r() is not None for r in views]
+    finally:
+        gc.enable()
+    assert len(views) == len(grads) and not any(alive)
+
+
 def test_unported_training_paths_name_their_items(dlrm):
     run = TRun(model=dlrm["tcfg"], shape=TShape("t", "train", 1, 8))
     with pytest.raises(NotImplementedError, match="item 12"):
         TSTEPS.make_train_step(run.model, run.shape,
                                TPar(grad_compression="int8"), TOpt())
-    # the dense family trains since slice 4; the other families wait
-    moe = TREG.get_reduced("olmo-1b").replace(family="moe")
+    # the dense and MoE families train; the other families wait
+    ssm = TREG.get_reduced("olmo-1b").replace(family="ssm")
     with pytest.raises(NotImplementedError, match="item 11"):
-        TSTEPS.loss_fn(moe, {}, {})
+        TSTEPS.loss_fn(ssm, {}, {})
     with pytest.raises(NotImplementedError, match="item 11"):
-        Trainer(run.replace(model=moe), device="cpu")
+        Trainer(run.replace(model=ssm), device="cpu")
     # no checkpoint yet: restore finds none, save without ckpt_dir is a no-op
     tr = Trainer(run, device="cpu")
     assert tr.restore() is None
     tr.save(None)
     assert Trainer(run, device="cpu", ckpt_dir="ckpt").restore() is None
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Trainer(run.replace(optimizer=TOpt(name="sgd")),
-                device="cpu").init_state()
 
 
 def test_trainer_runs_on_the_card_by_default(dlrm):
