@@ -232,6 +232,26 @@ each of which fails the run if it fails:
      (``launches_moe_trained``).  Then reduced qwen3-moe preempted at step
      3 (``Slice.request_preempt``, checkpoints) and resumed on another
      slice shape: losses and params bitwise an uninterrupted run's.
+ 18. SSM and hybrid (run after phase 17, on an empty card: < 3 GB
+     allocated before each model, checked): rows 1 and 2 at hymba-1.5b's
+     attention shapes (25 query heads over 5 KV heads, d = 64; decode
+     B = 16, S = 1152, lengths 0, 1, 1024, 1025, 1152 among 16, window
+     1024 and global; prefill B = 16, T = S = 1088, window 1024) against
+     their plain versions, timed in turns with SDPA (``enable_gqa``, the
+     window as an explicit mask) beside their bounds; reduced mamba2-130m
+     and hymba-1.5b card vs CPU with the same seeded weights (a 24-token
+     prefill and 12 teacher-forced decode steps within the serve bar, a
+     frozen lane's SSD state bitwise unchanged); then full-width
+     mamba2-130m (24 layers, d_model 768, state 128) and hymba-1.5b (32
+     layers, d_model 1600, 25 heads over 5, window 1024 with layers 15
+     and 31 global), each in ``ServeEngine(SliceSpec(slots=16,
+     max_len=1152, prompt_len=1088, chunk=8))`` on 16 prompts of
+     1024-1088 tokens, 64 new tokens each, counted: every budget met with
+     in-vocabulary ids, hymba's rows 1 and 2 on every layer of every step
+     and admission (``launches_hymba``), mamba2 launching neither; the
+     same requests at chunk 1 bitwise equal; tokens/s, mean and p95 TTFT,
+     ms a decode step, peak memory and the card's idle share over one
+     profiled chunk.
 
 Prints, last: a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and
@@ -3848,6 +3868,248 @@ def moe_training_phases(torch, np, F, registry, api, Dataset, CL, STEPS,
                 phase_s=time.perf_counter() - t_phase), launches
 
 
+# Phase 18: the SSM and hybrid families.  mamba2-130m and hymba-1.5b at
+# full width, 16 requests of prompts left-padded to 1088 tokens (4 chunks
+# of 256 and a padded quarter) and 64 new tokens each; hymba decodes
+# past its 1024-token window on 30 of its 32 layers
+SSM_ARCHS = ("mamba2-130m", "hymba-1.5b")
+SSM_EMPTY_LIMIT = 3e9           # allocated bytes when each serve starts
+SSM_SPEC = dict(slots=16, max_len=1152, prompt_len=1088, chunk=8)
+SSM_NEW_TOKENS = 64
+SSM_REQUESTS = 16
+# hymba-1.5b's attention: 25 query heads over 5 KV heads, d = 64
+HYMBA_HEADS = (25, 5, 64)
+HYMBA_WINDOW = 1024
+HYMBA_LENS = [0, 1, 1024, 1025, 1152, 5, 100, 500, 1023, 1026, 1100, 1151,
+              64, 700, 1088, 1090]
+
+
+def hymba_kernel_phase(torch, F, DA, FA, REF, dev="cuda"):
+    """Rows 1 and 2 at hymba-1.5b's attention shapes (H = 25 query heads
+    over KH = 5 KV heads: one head group of 8 holds 5; d = 64).  Decode at
+    B = 16, S = 1152 with lengths 0, 1, 1024, 1025 and 1152 among others,
+    with the window of 1024 and global; prefill at the serve phase's
+    admission wave (B = 16, T = S = 1088) with the window.  Each is held
+    against its plain version, timed beside it and, in turns, beside SDPA
+    (``enable_gqa``, the window as an explicit mask; a yardstick only),
+    with its bound from the rows the window and lengths leave."""
+    gen = torch.Generator(device=dev).manual_seed(28)
+    bf = torch.bfloat16
+    H, KH, d = HYMBA_HEADS
+    W = HYMBA_WINDOW
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    out = {}
+    B, S = len(HYMBA_LENS), 1152
+    lens = torch.tensor(HYMBA_LENS, dtype=torch.int32, device=dev)
+    sets = [(randn(B, H, d), randn(B, S, KH, d), randn(B, S, KH, d), lens)
+            for _ in range(3)]                           # 3 x 19 MB
+    kpos = torch.arange(S, device=dev)[None, :]
+    ln = lens.long()[:, None]
+    for window in (W, None):
+        kw = dict(window=window)
+        name = "window" if window else "global"
+        err = max_err(torch, DA.paged_decode_attention(*sets[0], **kw),
+                      REF.paged_decode_attention_ref(*sets[0], **kw),
+                      f"decode at hymba's B{B} H{H} KH{KH} S{S} {name}")
+        see = kpos < ln
+        if window:
+            see &= (ln - 1) - kpos < window
+        mask = see[:, None, None, :]
+
+        def sdpa(i, mask=mask):
+            q, k, v, _ = sets[i]
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+
+        mean, turns = in_turns(torch, {
+            "kernel": lambda i, kw=kw: DA.paged_decode_attention(*sets[i],
+                                                                 **kw),
+            "library": sdpa}, 3)
+        rows = int(see.sum())
+        bound_ms, bound_by = bound(2 * B * H * d * 2 + 2 * rows * KH * d * 2
+                                   + B * 4, 4 * rows * H * d)
+        out[f"paged_decode_attention_{name}"] = dict(
+            shape=[B, H, KH, S, d], window=window, rows=rows,
+            max_abs_err=err, ms=mean["kernel"],
+            plain_ms=cuda_ms(torch, lambda i, kw=kw:
+                             REF.paged_decode_attention_ref(*sets[i], **kw),
+                             3),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=mean["library"],
+            ms_turns=turns)
+    del sets
+    B, T = SSM_SPEC["slots"], SSM_SPEC["prompt_len"]
+    sets = [(randn(B, H, T, d), randn(B, KH, T, d), randn(B, KH, T, d))
+            for _ in range(3)]                           # 3 x 78 MB
+    err = max_err(torch, FA.flash_attention(*sets[0], window=W),
+                  REF.flash_attention_ref(*sets[0], window=W),
+                  f"prefill at hymba's B{B} H{H} KH{KH} T{T} window {W}")
+    t = torch.arange(T, device=dev)
+    allowed = (t[None, :] <= t[:, None]) & (t[:, None] - t[None, :] < W)
+    mean, turns = in_turns(torch, {
+        "kernel": lambda i: FA.flash_attention(*sets[i], window=W),
+        "library": lambda i: F.scaled_dot_product_attention(
+            *sets[i], attn_mask=allowed, enable_gqa=True)}, 3)
+    pairs = int(allowed.sum())
+    bound_ms, bound_by = bound((2 * B * H * T * d + 2 * B * KH * T * d) * 2,
+                               4 * B * H * d * pairs)
+    out["flash_attention"] = dict(
+        shape=[B, H, KH, T, d], window=W, pairs=pairs, max_abs_err=err,
+        ms=mean["kernel"],
+        plain_ms=cuda_ms(torch, lambda i: REF.flash_attention_ref(
+            *sets[i], window=W), 3),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=mean["library"],
+        ms_turns=turns)
+    return out
+
+
+def ssm_reference_phase(torch, registry, api, TF, dev="cuda"):
+    """Reduced mamba2-130m and hymba-1.5b, seeded weights, on the CPU
+    (plain attention, CPU matmuls) and on the card (rows 1 and 2, cuBLAS):
+    a prefill of 24 tokens (past hymba's reduced window of 16 and over the
+    SSD chunk of 16 with a padded second chunk), then 12 teacher-forced
+    ``decode_step_paged`` steps with one lane frozen from step 6.  Logits
+    within LOGIT_REL_TOL of the CPU's largest; the frozen lane's SSD state
+    and conv history bitwise what they were on both.  Returns each arch's
+    worst share of the tolerance."""
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = registry.get_reduced(arch)
+        p_cpu = api.init_params(cfg, seed=0, device="cpu")
+        p_gpu = _to(p_cpu, dev)
+        B, T, steps = 3, 24, 12
+        g = torch.Generator().manual_seed(0)
+        toks = torch.randint(0, cfg.vocab_size, (B, T + steps), generator=g)
+        runs = {}
+        for name, p, d in (("cpu", p_cpu, "cpu"), ("gpu", p_gpu, dev)):
+            logits, cache = api.prefill(cfg, p, {"tokens": toks[:, :T].to(d)},
+                                        max_len=T + steps)
+            lens = torch.full((B,), T, dtype=torch.int32, device=d)
+            got = [logits]
+            for s in range(steps):
+                active = torch.tensor([True, s < 6, True], device=d)
+                before = (cache.ssm[:, 1].clone(), cache.conv[:, 1].clone())
+                lg, cache, lens = TF.decode_step_paged(
+                    cfg, p, cache, toks[:, T + s].to(d), lens, active)
+                if s >= 6:
+                    check(torch.equal(cache.ssm[:, 1], before[0])
+                          and torch.equal(cache.conv[:, 1], before[1]),
+                          f"{arch} {name} step {s}: a frozen lane's SSD "
+                          f"state moved")
+                got.append(lg[active])
+            runs[name] = [x.float().cpu() for x in got]
+        worst = 0.0
+        for s, (c, g_) in enumerate(zip(runs["cpu"], runs["gpu"])):
+            check(bool(torch.isfinite(g_).all()), f"{arch} step {s}: not "
+                                                  f"finite")
+            tol = LOGIT_REL_TOL * c.abs().max().item()
+            err = (c - g_).abs().max().item()
+            check(err <= tol, f"{arch} step {s}: card vs CPU logits differ "
+                              f"by {err:.4f} > {tol:.4f}")
+            worst = max(worst, err / tol)
+        out[arch] = dict(worst_share_of_tol=worst, steps=steps + 1)
+    return out
+
+
+def ssm_trace(np, vocab):
+    """Phase 18's 16 prompts of 1024-1088 tokens (the engine left-pads them
+    to 1088 with token 0), ids below ``vocab``, from seed 0."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, size=int(rng.integers(1024, 1089)))
+            for _ in range(SSM_REQUESTS)]
+
+
+def ssm_serve_phase(torch, np, cfg, api, engine_mod, DA, FA, dev="cuda"):
+    """Full-width ``cfg`` (bf16 weights from seed 0) in
+    ``ServeEngine(SliceSpec(slots=16, max_len=1152, prompt_len=1088,
+    chunk=8))`` on `ssm_trace`, 64 new tokens each, counted: every request
+    its budget of in-vocabulary ids, rows 1 and 2 launched on every layer
+    of every decode step and admission (the hybrid family) or never (the
+    SSM family).  Then the same requests at chunk 1: the same tokens, bit
+    for bit; finite prefill logits of the right shape; a profile of one
+    decode chunk (the card's idle share)."""
+    check(torch.cuda.memory_allocated() < SSM_EMPTY_LIMIT,
+          f"{torch.cuda.memory_allocated()} bytes allocated before serving "
+          f"{cfg.name}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    weight_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    spec = engine_mod.SliceSpec(**SSM_SPEC)
+    prompts = ssm_trace(np, cfg.vocab_size)
+    warm = engine_mod.ServeEngine(cfg, params, spec, device=dev)
+    warm.submit(prompts[0][:40], max_new_tokens=9)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng, reqs, stats, launches = _engine_run(
+        torch, engine_mod, cfg, params, spec, prompts, SSM_NEW_TOKENS, DA,
+        FA, dev)
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    streams = [list(r.out_tokens) for r in reqs]
+    del eng, reqs
+    waves = math.ceil(len(prompts) / spec.slots)
+    if cfg.family == "hybrid":
+        check(launches["paged_decode_attention"]
+              >= cfg.num_layers * stats["decode_steps"]
+              and launches["flash_attention"] >= cfg.num_layers * waves,
+              f"{cfg.name} launches {launches} for {stats['decode_steps']} "
+              f"steps and {waves} waves x {cfg.num_layers} layers")
+    else:
+        check(not any(launches.values()),
+              f"{cfg.name} has no attention but launched {launches}")
+    stats.update(init_s=init_s, params=n_params, weight_gb=weight_gb,
+                 launches=launches,
+                 ms_decode_step=stats["p50_chunk_s"] / spec.chunk * 1e3)
+    one = engine_mod.SliceSpec(**{**SSM_SPEC, "chunk": 1})
+    _, reqs1, stats1, _ = _engine_run(torch, engine_mod, cfg, params, one,
+                                      prompts, SSM_NEW_TOKENS, DA, FA, dev)
+    check([list(r.out_tokens) for r in reqs1] == streams,
+          f"{cfg.name}: chunk 8 and chunk 1 served different tokens")
+    stats["chunk_invariant_bitwise"] = True
+    stats["chunk1_tokens_per_s"] = stats1["tokens_per_s"]
+    del reqs1
+    n = min(len(p) for p in prompts[:2])
+    toks = torch.as_tensor(np.stack([p[-n:] for p in prompts[:2]]),
+                           device=dev).long()
+    logits, _ = api.prefill(cfg, params, {"tokens": toks})
+    check(tuple(logits.shape) == (2, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.name} prefill logits {tuple(logits.shape)} not finite")
+    stats["profile"] = profile_chunk(torch, np, cfg, params, engine_mod, spec)
+    del params
+    return stats, launches
+
+
+def ssm_phase(torch, np, F, registry, api, engine_mod, DA, FA, REF, TF,
+              dev="cuda"):
+    """Phase 18: the SSM and hybrid families.  Rows 1 and 2 at hymba's
+    shapes, the reduced archs card vs CPU, then full-width mamba2-130m and
+    hymba-1.5b served, each on an empty card."""
+    t_phase = time.perf_counter()
+    kernels = hymba_kernel_phase(torch, F, DA, FA, REF, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reference = ssm_reference_phase(torch, registry, api, TF, dev)
+    out = dict(kernels=kernels, reference=reference)
+    launches = {}
+    for arch in SSM_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch], launches[arch] = ssm_serve_phase(
+            torch, np, registry.get_config(arch), api, engine_mod, DA, FA,
+            dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches["hymba-1.5b"]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3948,6 +4210,11 @@ def main(argv=None):
         OptimizerConfig, engine_mod, DA, FA)
     log("moe training:", json.dumps(moe_train))
     gc.collect()                    # its 49.8 GB of training state
+    torch.cuda.empty_cache()
+    ssm, hymba_launches = ssm_phase(torch, np, F, registry, api, engine_mod,
+                                    DA, FA, REF, TF)
+    log("ssm and hybrid:", json.dumps(ssm))
+    gc.collect()
     torch.cuda.empty_cache()
     stats, launches = serve_phase(torch, np, registry.get_config("olmo-1b"),
                                   api, engine_mod, DA, FA)
@@ -4065,6 +4332,9 @@ def main(argv=None):
     decode["launches_moe_trained"] = moe_train_launches[
         "paged_decode_attention"]
     prefill["launches_moe_trained"] = moe_train_launches["flash_attention"]
+    # full-width hymba-1.5b served (H = 25 over KH = 5, window 1024)
+    decode["launches_hymba"] = hymba_launches["paged_decode_attention"]
+    prefill["launches_hymba"] = hymba_launches["flash_attention"]
     fused, gather = (dlrm_kern[DLRM_BATCH][n]
                      for n in ("fused_lookup", "embedding_gather"))
     fused["launches"] = dlrm_launches["fused_lookup"]
@@ -4083,7 +4353,7 @@ def main(argv=None):
     more = ("launches_hot", "launches_keys", "launches_pooled_engine",
             "launches_int8_engine", "launches_trained_serve",
             "launches_fleet", "launches_mixed", "launches_moe",
-            "launches_moe_trained")
+            "launches_moe_trained", "launches_hymba")
     kernels = {"kernels": [{k: kern[k] for k in keys}
                            | {k: kern[k] for k in more if k in kern}
                            for kern in (decode, pooled["q8"], pooled["bt"],
@@ -4112,7 +4382,7 @@ def main(argv=None):
                  per_table_training=per_table,
                  dense_training=dense, fault_drill=drill,
                  fleet=fleet, mixed_tenancy=mixed, moe=moe,
-                 moe_training=moe_train,
+                 moe_training=moe_train, ssm=ssm,
                  **kernels), indent=2))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

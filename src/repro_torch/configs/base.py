@@ -1,9 +1,10 @@
-"""Config dataclasses the port's dense, MoE and DLRM families need.
+"""Config dataclasses the port's dense, MoE, SSM, hybrid and DLRM families
+need.
 
 Copies of ``repro.configs.base.ShapeConfig``, ``AttentionConfig``,
-``MoEConfig``, ``EmbeddingTableConfig``, ``DLRMConfig`` and
-``ModelConfig``, the last cut to the fields a dense or MoE decoder or a
-DLRM reads, and of the run-level
+``MoEConfig``, ``SSMConfig``, ``EmbeddingTableConfig``, ``DLRMConfig`` and
+``ModelConfig``, the last cut to the fields a dense, MoE, SSM or hybrid
+decoder or a DLRM reads, and of the run-level
 ``ParallelConfig``, ``OptimizerConfig`` and ``RunConfig``, whole.  The port keeps its own
 copy instead of importing the JAX package; ``tests/test_torch_interop.py``
 holds every kept field equal to the reference config.
@@ -61,6 +62,16 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int                     # N (ssm_state)
+    head_dim: int = 64                 # P per SSD head
+    num_heads: int = 0                 # 0 -> derive: d_inner // head_dim
+    expand: int = 2                    # d_inner = expand * d_model
+    chunk: int = 256                   # SSD chunk length
+    conv_width: int = 4
+
+
+@dataclass(frozen=True)
 class EmbeddingTableConfig:
     name: str
     vocab_size: int
@@ -87,13 +98,15 @@ class DLRMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # "dense" | "moe" | "dlrm" (others: not ported)
+    family: str                        # "dense" | "moe" | "ssm" | "hybrid" | "dlrm"
+                                       # (others: not ported)
     num_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attention: Optional[AttentionConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     dlrm: Optional[DLRMConfig] = None
 
     norm: str = "rmsnorm"              # "rmsnorm" | "layernorm" | "nonparam_ln"
@@ -108,6 +121,9 @@ class ModelConfig:
     # vlm: number of prefix patch positions fed as stub embeddings
     vision_prefix: int = 0
     vision_dim: int = 0
+
+    # hybrid: run attention and SSM in parallel per layer (hymba)
+    parallel_heads: bool = False
 
     # numerics
     dtype: str = "bfloat16"

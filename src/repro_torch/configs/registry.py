@@ -12,6 +12,8 @@ _ARCH_MODULES = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe",
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
     "dlrm0": "repro_torch.configs.dlrm0",
 }
 

@@ -4,7 +4,8 @@
 
 serves full-width olmo-1b on the card with random weights from ``--seed``
 (``--arch qwen3-moe-30b-a3b`` or ``kimi-k2-1t-a32b``: a MoE model;
-full-width kimi-k2 does not fit one card);
+full-width kimi-k2 does not fit one card; ``mamba2-130m``: the SSM family;
+``hymba-1.5b``: the hybrid one);
 ``--reduced`` picks the smoke-test config and ``--device cpu`` the CPU
 (plain attention instead of the CUDA kernels).  ``--chunk`` sets the decode
 tokens advanced per host sync; ``--chunk 1`` gives identical greedy output.
@@ -19,6 +20,7 @@ import numpy as np
 
 from repro_torch.configs import registry
 from repro_torch.models import api
+from repro_torch.models import transformer as TF
 from repro_torch.serve.engine import ServeEngine, SliceSpec
 
 
@@ -26,7 +28,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b", choices=[
         a for a in registry.ARCHS
-        if registry.get_config(a).family in ("dense", "moe")])
+        if registry.get_config(a).family in TF.DECODER_FAMILIES])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)

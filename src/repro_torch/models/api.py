@@ -2,7 +2,9 @@
 
 The dense and MoE families train (`forward`, with the aux loss the MoE
 layers sum) and serve (prefill, decode; the MoE family not on the pooled
-KV cache, as in the reference); the DLRM family scores and trains
+KV cache, as in the reference); the SSM (mamba2) and hybrid (hymba)
+families serve and run the teacher-forced `forward`, neither on the
+pooled KV cache; the DLRM family scores and trains
 (`init_params`, `forward`, `make_batch`).  Every other family, and every
 entry point a family does not have yet, raises ``NotImplementedError``
 naming its ROADMAP.md item.  Entry points that create tensors take
@@ -33,8 +35,8 @@ def resolve_device(device="cuda") -> torch.device:
 
 def _family(cfg: ModelConfig, *ok: str) -> None:
     """Raise unless ``cfg.family`` is one of ``ok`` (default: the decoder
-    families, dense and MoE)."""
-    ok = ok or ("dense", "moe")
+    families, dense, MoE, SSM and hybrid)."""
+    ok = ok or TF.DECODER_FAMILIES
     if cfg.family in ok:
         return
     if cfg.family == "audio":
@@ -44,12 +46,12 @@ def _family(cfg: ModelConfig, *ok: str) -> None:
     if cfg.family == "dlrm":
         raise NotImplementedError(
             "the DLRM scores through api.forward; it has no decoder")
-    if cfg.family in ("dense", "moe") and ok == ("dlrm",):   # make_batch
+    if cfg.family in TF.DECODER_FAMILIES and ok == ("dlrm",):  # make_batch
         raise NotImplementedError(
             f"api.make_batch of the {cfg.family} family waits for ROADMAP.md "
             f"queue 1, item 5; training draws its batches from "
             f"data.synthetic.Dataset")
-    if cfg.family == "moe":
+    if cfg.family in TF.DECODER_FAMILIES:
         raise NotImplementedError(
             "pooled prefix-shared KV is dense-transformer only")
     raise NotImplementedError(
@@ -65,7 +67,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     params are f32, as the reference's.  ``device="meta"`` gives the
     shapes and dtypes only (`param_shapes`).  (Weights that must equal the
     JAX package's come over through ``repro_torch.interop``.)"""
-    _family(cfg, "dense", "moe", "dlrm")
+    _family(cfg, *TF.DECODER_FAMILIES, "dlrm")
     dev = resolve_device(device)
     # a meta tensor draws nothing: any generator will do
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
@@ -85,12 +87,12 @@ def param_shapes(cfg: ModelConfig, dtype: Optional[torch.dtype] = None):
 
 
 def forward(cfg: ModelConfig, p, batch, **kw):
-    """Dense, MoE: -> (logits (B, T, V) f32, aux: the MoE load-balance
-    losses summed, 0.0 for dense); ``remat=``, ``kv_chunk=``,
-    ``return_hidden=`` and ``attn_impl=`` as ``transformer.forward``.
-    DLRM: -> (logits (B,) f32, aux 0.0); ``fused=`` picks the lookup route
-    (see ``models/dlrm.forward``)."""
-    _family(cfg, "dense", "moe", "dlrm")
+    """Dense, MoE, SSM, hybrid: -> (logits (B, T, V) f32, aux: the MoE
+    load-balance losses summed, 0.0 for the others); ``remat=``,
+    ``kv_chunk=``, ``return_hidden=`` and ``attn_impl=`` as
+    ``transformer.forward``.  DLRM: -> (logits (B,) f32, aux 0.0);
+    ``fused=`` picks the lookup route (see ``models/dlrm.forward``)."""
+    _family(cfg, *TF.DECODER_FAMILIES, "dlrm")
     if cfg.family == "dlrm":
         return DL.forward(cfg, p, batch, **kw)
     return TF.forward(cfg, p, batch, **kw)
@@ -101,7 +103,7 @@ def stacked(cfg: ModelConfig, p):
     False elsewhere (`launch.steps` takes a stacked leaf's gradient layer
     by layer): a decoder's ``p["layers"]`` (``transformer.stacked``); the
     DLRM stacks nothing."""
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in TF.DECODER_FAMILIES:
         return TF.stacked(p)
     return TF.fill(p, False)
 
@@ -131,9 +133,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
 
 def prefill_slot(cfg: ModelConfig, p, batch, cache, slot, *,
                  max_len: Optional[int] = None):
-    """Prefill newly admitted request(s) and write their KV rows into batch
-    rows ``slot`` of the live ``cache`` (in place); rows whose slot index
-    is out of range are padding and are dropped.
+    """Prefill newly admitted request(s) and write their KV rows (and SSD
+    states and conv histories) into batch rows ``slot`` of the live
+    ``cache`` (in place); rows whose slot index is out of range are padding
+    and are dropped.
     Returns (last_logits (n, V), cache)."""
     _family(cfg)
     logits, slot_cache = TF.prefill(cfg, p, batch, max_len=max_len)

@@ -1,13 +1,19 @@
-"""Decoder stack of the port (dense and MoE families): init, the training
-forward, prefill, paged decode, decode_n, over a per-slot KV cache or,
-for the dense family, a pooled block-table one (`init_kv_pool`,
+"""Decoder stack of the port (dense, MoE, SSM and hybrid families): init,
+the training forward, prefill, paged decode, decode_n, over a per-slot
+cache or, for the dense family, a pooled block-table one (`init_kv_pool`,
 `prefill_suffix`).
 
-Ports of ``repro/models/transformer.py`` for the dense and MoE families.
+Ports of ``repro/models/transformer.py`` for those families.
 A MoE model's stacked layers carry ``moe`` in place of ``mlp``
 (``models/moe.py``); its dense prefix (kimi-k2) is the unstacked list
 ``dense_prefix`` with its own KV (``Cache.prefix_k/v``), run before the
-stack with global windows, as the reference unrolls it.  JAX scans a
+stack with global windows, as the reference unrolls it.  An SSM model
+(mamba2) has ``ln1`` and the SSD block ``ssm`` a layer and no FFN; a
+hybrid one (hymba) runs attention and the SSD block side by side on the
+same normed input and mixes them as ``0.5 * (attn * (1 + alpha_attn) +
+ssm * (1 + alpha_ssm))`` in the activation dtype, then its MLP.  Their
+recurrent state lives in ``Cache.ssm`` (L, B, H, P, N) f32 and
+``Cache.conv`` (L, B, W-1, conv_dim) bf16 (``models/ssm.py``).  JAX scans a
 stacked layer body; here a Python loop walks the same stacked params
 (``p["layers"][...][l]``).  JAX's arrays are immutable; the port writes the
 KV cache IN PLACE (``cache_insert`` and ``decode_step_paged`` return the
@@ -27,7 +33,8 @@ Numerics kept from the reference, where they are easy to lose:
   * decode positions are the per-slot ``seq_lens``; a frozen slot (budget
     met) still writes a garbage KV row at ``min(seq_len, S-1)`` and keeps
     its length, and its emitted token repeats, so greedy outputs stay
-    bitwise chunk-invariant.
+    bitwise chunk-invariant; a frozen slot's SSM state and conv history
+    are kept as they were, bit for bit.
 """
 from __future__ import annotations
 
@@ -44,16 +51,21 @@ from repro_torch.kernels import ref as REF
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import quant as Q
+from repro_torch.models import ssm as SSM
 
 GLOBAL_WINDOW = 1 << 30
 
 
+DECODER_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
 def _require_decoder(cfg: ModelConfig) -> None:
-    if (cfg.family not in ("dense", "moe") or cfg.attention is None
-            or cfg.vision_prefix):
+    if (cfg.family not in DECODER_FAMILIES or cfg.vision_prefix
+            or (cfg.attention is None) != (cfg.family == "ssm")):
         raise NotImplementedError(
-            f"repro_torch serves the dense and MoE families only; {cfg.name} "
-            f"({cfg.family}) waits for ROADMAP.md queue 1, item 11")
+            f"repro_torch serves the dense, MoE, SSM and hybrid families "
+            f"only; {cfg.name} ({cfg.family}) waits for ROADMAP.md queue 1, "
+            f"item 11")
 
 
 def _require_dense(cfg: ModelConfig) -> None:
@@ -178,12 +190,25 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
     Same distributions as the reference's ``init_params``, not the same
     numbers: JAX's PRNG is not reproduced.  A MoE model's stacked layers
     hold ``moe`` (``moe.moe_init``) in place of ``mlp``, and its dense
-    prefix is the list ``dense_prefix`` of unstacked blocks."""
+    prefix is the list ``dense_prefix`` of unstacked blocks.  An SSM
+    model's layers hold ``ln1`` and ``ssm`` (``ssm.ssd_init``); a hybrid
+    model's add ``ssm`` and the f32 zeros ``alpha_attn``, ``alpha_ssm``
+    (L, d) to a dense block."""
     _require_decoder(cfg)
     d, n = cfg.d_model, _n_scan(cfg)
     moe = cfg.family == "moe"
-    layers = _block_init(cfg, gen, (n,), None if moe else cfg.d_ff, device,
-                         dtype)
+    if cfg.family == "ssm":
+        layers = {"ln1": _norm_init(cfg, (n,), device, dtype)}
+    else:
+        layers = _block_init(cfg, gen, (n,), None if moe else cfg.d_ff,
+                             device, dtype)
+    if cfg.family in ("ssm", "hybrid"):
+        layers["ssm"] = SSM.ssd_init(cfg, gen, stacked=n, device=device,
+                                     dtype=dtype)
+    if cfg.family == "hybrid":
+        for k in ("alpha_attn", "alpha_ssm"):
+            layers[k] = torch.zeros((n, d), dtype=torch.float32,
+                                    device=device)
     if moe:
         layers["moe"] = MOE.moe_init(cfg, gen, stacked=n, device=device,
                                      dtype=dtype)
@@ -230,28 +255,42 @@ def unembed(cfg: ModelConfig, p, x, dtype=torch.bfloat16):
 
 @dataclasses.dataclass
 class Cache:
-    k: torch.Tensor                      # (L, B, S, KH, hd)
-    v: torch.Tensor
-    pos: torch.Tensor                    # () int32: tokens already cached
+    k: Optional[torch.Tensor] = None     # (L, B, S, KH, hd); None for SSM
+    v: Optional[torch.Tensor] = None
+    pos: Optional[torch.Tensor] = None   # () int32: tokens already cached
     # a MoE model's dense prefix: one (B, S, KH, hd) per prefix layer
     prefix_k: Optional[List[torch.Tensor]] = None
     prefix_v: Optional[List[torch.Tensor]] = None
+    # SSM and hybrid: the SSD state (L, B, H, P, N) f32 and the raw conv
+    # history (L, B, W-1, conv_dim) bf16 of each layer
+    ssm: Optional[torch.Tensor] = None
+    conv: Optional[torch.Tensor] = None
+
+    @property
+    def batch(self) -> int:
+        return (self.k if self.k is not None else self.ssm).shape[1]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                dtype=torch.bfloat16) -> Cache:
     _require_decoder(cfg)
     a = cfg.attention
-    kv = (_n_scan(cfg), batch, max_len, a.num_kv_heads, a.head_dim)
-    c = Cache(k=torch.zeros(kv, dtype=dtype, device=device),
-              v=torch.zeros(kv, dtype=dtype, device=device),
-              pos=torch.zeros((), dtype=torch.int32, device=device))
-    npre = cfg.num_layers - _n_scan(cfg)
-    if npre:
-        c.prefix_k = [torch.zeros(kv[1:], dtype=dtype, device=device)
-                      for _ in range(npre)]
-        c.prefix_v = [torch.zeros(kv[1:], dtype=dtype, device=device)
-                      for _ in range(npre)]
+    n = _n_scan(cfg)
+    c = Cache(pos=torch.zeros((), dtype=torch.int32, device=device))
+    if a is not None:
+        kv = (n, batch, max_len, a.num_kv_heads, a.head_dim)
+        c.k = torch.zeros(kv, dtype=dtype, device=device)
+        c.v = torch.zeros(kv, dtype=dtype, device=device)
+        npre = cfg.num_layers - n
+        if npre:
+            c.prefix_k = [torch.zeros(kv[1:], dtype=dtype, device=device)
+                          for _ in range(npre)]
+            c.prefix_v = [torch.zeros(kv[1:], dtype=dtype, device=device)
+                          for _ in range(npre)]
+    if cfg.family in ("ssm", "hybrid"):
+        state, conv = SSM.init_ssm_state(cfg, batch, device=device)
+        c.ssm = state.expand((n,) + state.shape).contiguous()
+        c.conv = conv.expand((n,) + conv.shape).contiguous()
     return c
 
 
@@ -295,14 +334,30 @@ def _write_rows(flat, src, at, any_kept, new):
 # Layer body
 # ---------------------------------------------------------------------------
 
+def _mix(lp, ha, hs):
+    """The token mixer's output from the attention output ``ha`` and the
+    SSD output ``hs`` (either None where the family has none): a hybrid
+    layer's ``0.5 * (ha * (1 + alpha_attn) + hs * (1 + alpha_ssm))``, in
+    ``ha``'s dtype, op by op as the reference."""
+    if hs is None:
+        return ha
+    if ha is None:
+        return hs
+    dt = ha.dtype
+    return 0.5 * (ha * (1.0 + lp["alpha_attn"].to(dt))
+                  + hs * (1.0 + lp["alpha_ssm"].to(dt)))
+
+
 def _layer_tail(cfg: ModelConfig, lp, x, h, *, decode: bool = False):
-    """Residual add of the attention output ``h``, then the FFN block: the
+    """Residual add of the mixer output ``h``, then the FFN block: the
     dense MLP, or the MoE layer (``moe.moe_ep``, or ``moe.moe_decode`` for
-    ``decode``).  Returns (x, aux): the MoE load-balance loss, None for a
-    dense MLP."""
+    ``decode``); an SSM layer has none.  Returns (x, aux): the MoE
+    load-balance loss, None for a dense MLP."""
     if cfg.post_norm:
         h = L.apply_norm(cfg, lp["post_ln1"], h)
     x = x + h
+    if cfg.family == "ssm":
+        return x, None
     h = L.apply_norm(cfg, lp["ln2"], x)
     aux = None
     if "moe" in lp:
@@ -316,13 +371,16 @@ def _layer_tail(cfg: ModelConfig, lp, x, h, *, decode: bool = False):
 
 
 def _blocks(cfg: ModelConfig, p, cache: Cache):
-    """Every layer in order, as (params, window, k cache, v cache): a MoE
-    model's dense prefix (global windows, ``cache.prefix_k/v``), then the
-    stacked layers (``cache.k/v[l]``)."""
+    """Every layer in order, as (params, window, k cache, v cache, SSD
+    state, conv history): a MoE model's dense prefix (global windows,
+    ``cache.prefix_k/v``), then the stacked layers (``cache.k/v[l]``,
+    ``cache.ssm/conv[l]``); a cache the family lacks gives None."""
     for i, blk in enumerate(p.get("dense_prefix", [])):
-        yield blk, None, cache.prefix_k[i], cache.prefix_v[i]
+        yield blk, None, cache.prefix_k[i], cache.prefix_v[i], None, None
+    at = lambda c, l: None if c is None else c[l]
     for l, win in enumerate(_windows(cfg)):
-        yield _layer(p["layers"], l), win, cache.k[l], cache.v[l]
+        yield (_layer(p["layers"], l), win, at(cache.k, l), at(cache.v, l),
+               at(cache.ssm, l), at(cache.conv, l))
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +392,9 @@ def prefill(cfg: ModelConfig, p, batch: Dict[str, Any], *,
     """Forward over the prompt; returns (last-position logits (B, V) f32,
     filled cache of length ``max_len`` (default T)).  A MoE layer routes
     all B x T tokens together (capacity counts the whole dispatch, padding
-    included, as the reference's)."""
+    included, as the reference's).  An SSD block runs `ssm.ssd_forward`
+    over the whole prompt and leaves its final state and raw conv tail in
+    the cache."""
     _require_decoder(cfg)
     tokens = batch["tokens"]
     B, T = tokens.shape
@@ -343,17 +403,26 @@ def prefill(cfg: ModelConfig, p, batch: Dict[str, Any], *,
     S = max_len or T
     positions = torch.arange(T, device=tokens.device).expand(B, T)
     cache = init_cache(cfg, B, S, device=tokens.device)
-    for lp, win, kc, vc in _blocks(cfg, p, cache):
+    for lp, win, kc, vc, sst, scv in _blocks(cfg, p, cache):
         h = L.apply_norm(cfg, lp["ln1"], x)
-        q, k, v = L.attention_qkv(lp["attn"], h, a, positions)
-        # the kernel takes the JAX flash layout (B, H, T, d) / (B, KH, S, d)
-        o = OPS.flash_attention(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), causal=True, window=win,
-            softcap=a.logit_softcap, scale=a.attn_scale).transpose(1, 2)
-        kc[:, :T] = k
-        vc[:, :T] = v
-        x, _ = _layer_tail(cfg, lp, x, L.attention_out(lp["attn"], o))
+        ha = hs = None
+        if "attn" in lp:
+            q, k, v = L.attention_qkv(lp["attn"], h, a, positions)
+            # the kernel takes the JAX flash layout (B, H, T, d) /
+            # (B, KH, S, d)
+            o = OPS.flash_attention(
+                q.transpose(1, 2).contiguous(),
+                k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), causal=True, window=win,
+                softcap=a.logit_softcap, scale=a.attn_scale).transpose(1, 2)
+            kc[:, :T] = k
+            vc[:, :T] = v
+            ha = L.attention_out(lp["attn"], o)
+        if "ssm" in lp:
+            hs, state, tail = SSM.ssd_forward(cfg, lp["ssm"], h)
+            sst.copy_(state)
+            scv.copy_(tail)
+        x, _ = _layer_tail(cfg, lp, x, _mix(lp, ha, hs))
     cache.pos.fill_(T)
     x = L.apply_norm(cfg, p["final_norm"], x)
     return unembed(cfg, p, x[:, -1:, :])[:, 0], cache
@@ -395,20 +464,24 @@ def static_window_for(cfg: ModelConfig, idx_in_group: int, group: int):
 def _dense_layer(cfg: ModelConfig, lp, x, positions, window, *,
                  kv_chunk: int = 1024, attn_impl: str = "blocked"):
     """One pre-norm layer over the whole sequence (the reference's
-    ``_dense_layer``): plain-torch attention, differentiable.  Returns
-    (x, aux) as `_layer_tail`."""
+    ``_dense_layer``): plain-torch attention and the SSD block's
+    `ssm.ssd_forward`, differentiable.  Returns (x, aux) as
+    `_layer_tail`."""
     a = cfg.attention
     h = L.apply_norm(cfg, lp["ln1"], x)
-    if attn_impl == "qchunked":
+    ha = hs = None
+    if "attn" in lp and attn_impl == "qchunked":
         q, k, v = L.attention_qkv(lp["attn"], h, a, positions)
         o = L.blocked_attention_qchunked(
             q, k, v, positions, positions, window=window,
             softcap=a.logit_softcap, scale=a.attn_scale, kv_chunk=kv_chunk)
-        h = L.attention_out(lp["attn"], o)
-    else:
-        h = L.self_attention(lp["attn"], h, a, positions, window=window,
-                             kv_chunk=kv_chunk)
-    return _layer_tail(cfg, lp, x, h)
+        ha = L.attention_out(lp["attn"], o)
+    elif "attn" in lp:
+        ha = L.self_attention(lp["attn"], h, a, positions, window=window,
+                              kv_chunk=kv_chunk)
+    if "ssm" in lp:
+        hs, _, _ = SSM.ssd_forward(cfg, lp["ssm"], h)
+    return _layer_tail(cfg, lp, x, _mix(lp, ha, hs))
 
 
 def forward(cfg: ModelConfig, p, batch: Dict[str, Any], *,
@@ -468,23 +541,26 @@ def forward(cfg: ModelConfig, p, batch: Dict[str, Any], *,
 
 def cache_insert(cache: Cache, slot_cache: Cache, slot) -> Cache:
     """Write the (batch=n) ``slot_cache`` into batch rows ``slot`` of
-    ``cache``, in place.  ``slot`` is an int or n slot indices (host ints,
-    a numpy array or a CPU tensor).  An index >= the batch marks a padding
-    row and is dropped, as JAX drops out-of-bounds scatter updates; torch
-    indexing would raise on it instead."""
+    ``cache``, in place: its KV rows, SSD states and conv histories.
+    ``slot`` is an int or n slot indices (host ints, a numpy array or a
+    CPU tensor).  An index >= the batch marks a padding row and is
+    dropped, as JAX drops out-of-bounds scatter updates; torch indexing
+    would raise on it instead."""
     slots = np.atleast_1d(np.asarray(slot, np.int64))
-    B = cache.k.shape[1]
-    if slots.shape[0] != slot_cache.k.shape[1]:
+    B = cache.batch
+    if slots.shape[0] != slot_cache.batch:
         raise ValueError(f"{slots.shape[0]} slots for a slot cache of batch "
-                         f"{slot_cache.k.shape[1]}")
+                         f"{slot_cache.batch}")
     if (slots < 0).any():
         raise ValueError(f"negative slot index in {slots.tolist()}")
     keep = slots < B
-    dev = cache.k.device
+    dev = cache.pos.device
     dst = torch.as_tensor(slots[keep], device=dev)
     src = torch.as_tensor(np.nonzero(keep)[0], device=dev)
-    cache.k[:, dst] = slot_cache.k[:, src].to(cache.k.dtype)
-    cache.v[:, dst] = slot_cache.v[:, src].to(cache.v.dtype)
+    for name in ("k", "v", "ssm", "conv"):
+        c = getattr(cache, name)
+        if c is not None:
+            c[:, dst] = getattr(slot_cache, name)[:, src].to(c.dtype)
     for lists in ("prefix_k", "prefix_v"):
         for c, sc in zip(getattr(cache, lists) or (),
                          getattr(slot_cache, lists) or ()):
@@ -511,7 +587,8 @@ def decode_step_paged(cfg: ModelConfig, p, cache: Cache, tokens, seq_lens,
     A MoE model runs its dense prefix first (global windows, its own
     per-slot cache), then its MoE layers through ``moe.moe_decode``: every
     lane routes, frozen ones too (their repeat token takes capacity, as in
-    the reference).
+    the reference).  An SSD block advances by `ssm.ssd_step`; a frozen
+    lane keeps its state and conv history, bit for bit.
 
     Returns (logits (B, V), cache (updated in place), seq_lens + active).
     """
@@ -521,14 +598,14 @@ def decode_step_paged(cfg: ModelConfig, p, cache: Cache, tokens, seq_lens,
     seq_lens = seq_lens.to(torch.int32)
     x = embed_tokens(cfg, p, tokens[:, None])            # (B, 1, D)
     q_pos = seq_lens[:, None]                            # per-slot positions
-    if tables is None:
+    if tables is None and cache.k is not None:
         S = cache.k.shape[2]
         rows = torch.arange(B, device=tokens.device)
         # frozen slots write a garbage row one past their (frozen) length —
         # never read, and overwritten by the next admission's cache_insert
         idx = seq_lens.clamp(max=S - 1).long()
         lens_now = (seq_lens + 1).clamp(max=S)
-    else:
+    elif tables is not None:
         tables = tables.to(torch.int32).contiguous()
         NB, bs = cache.k.shape[1], cache.k.shape[2]
         W = tables.shape[1] * bs
@@ -537,21 +614,29 @@ def decode_step_paged(cfg: ModelConfig, p, cache: Cache, tokens, seq_lens,
         phys = tables.long().gather(1, (pos // bs)[:, None])[:, 0]
         src, at, any_kept = _pool_writes(phys * bs + pos % bs, NB * bs)
         lens_now = (seq_lens + 1).clamp(max=W)
-    for lp, win, kc, vc in _blocks(cfg, p, cache):
+    for lp, win, kc, vc, sst, scv in _blocks(cfg, p, cache):
         h = L.apply_norm(cfg, lp["ln1"], x)
-        q, k, v = L.attention_qkv(lp["attn"], h, a, q_pos)
-        kw = dict(window=win, softcap=a.logit_softcap, scale=a.attn_scale)
-        if tables is None:
-            kc[rows, idx] = k[:, 0].to(kc.dtype)
-            vc[rows, idx] = v[:, 0].to(vc.dtype)
-            o = OPS.paged_decode_attention(q[:, 0], kc, vc, lens_now, **kw)
-        else:
-            _write_rows(kc.flatten(0, 1), src, at, any_kept, k[:, 0])
-            _write_rows(vc.flatten(0, 1), src, at, any_kept, v[:, 0])
-            o = OPS.paged_decode_attention_bt(q[:, 0], kc, vc, lens_now,
-                                              tables, **kw)
-        x, _ = _layer_tail(cfg, lp, x, L.attention_out(lp["attn"], o[:, None]),
-                           decode=True)
+        ha = hs = None
+        if "attn" in lp:
+            q, k, v = L.attention_qkv(lp["attn"], h, a, q_pos)
+            kw = dict(window=win, softcap=a.logit_softcap, scale=a.attn_scale)
+            if tables is None:
+                kc[rows, idx] = k[:, 0].to(kc.dtype)
+                vc[rows, idx] = v[:, 0].to(vc.dtype)
+                o = OPS.paged_decode_attention(q[:, 0], kc, vc, lens_now,
+                                               **kw)
+            else:
+                _write_rows(kc.flatten(0, 1), src, at, any_kept, k[:, 0])
+                _write_rows(vc.flatten(0, 1), src, at, any_kept, v[:, 0])
+                o = OPS.paged_decode_attention_bt(q[:, 0], kc, vc, lens_now,
+                                                  tables, **kw)
+            ha = L.attention_out(lp["attn"], o[:, None])
+        if "ssm" in lp:
+            o, state, conv = SSM.ssd_step(cfg, lp["ssm"], h[:, 0], sst, scv)
+            sst.copy_(torch.where(active[:, None, None, None], state, sst))
+            scv.copy_(torch.where(active[:, None, None], conv, scv))
+            hs = o[:, None, :]
+        x, _ = _layer_tail(cfg, lp, x, _mix(lp, ha, hs), decode=True)
     act_i = active.to(torch.int32)
     torch.maximum(cache.pos, (seq_lens + act_i).max(), out=cache.pos)
     x = L.apply_norm(cfg, p["final_norm"], x)
@@ -720,7 +805,7 @@ def decode_n(cfg: ModelConfig, p, cache: Cache, tokens, seq_lens, budget, *,
     """
     if not greedy and seed is None:
         raise ValueError("sampling decode (greedy=False) needs a seed")
-    dev = cache.k.device
+    dev = cache.pos.device
     budget = torch.as_tensor(budget, dtype=torch.int32, device=dev)
     salt = (torch.as_tensor(salt, dtype=torch.int32, device=dev)
             if salt is not None

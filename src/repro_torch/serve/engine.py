@@ -1,6 +1,6 @@
 """Batched serving engine of the port: incremental continuous batching +
-chunked decode (the fast path of ``repro/serve/engine.py``, for the dense
-and MoE families).
+chunked decode (the fast path of ``repro/serve/engine.py``, for the dense,
+MoE, SSM and hybrid families).
 
   * **Incremental admission** — an admission wave prefills ONLY the
     admitted requests (``api.prefill_slot``: one prefill whose KV rows are
@@ -19,13 +19,14 @@ and MoE families).
 
 Kept from the reference on purpose: prompts are left-padded with token 0
 to ``prompt_len`` and the pads are attended as real tokens (``seq_lens`` is
-``prompt_len`` after admission); a wave is padded to ``slots`` rows whose
+``prompt_len`` after admission; an SSD block's state absorbs them too); a
+wave is padded to ``slots`` rows whose
 out-of-range slot index drops them (explicitly here, where JAX drops
 out-of-bounds scatter updates).  The wave is one prefill dispatch, so a
 MoE layer's capacity counts its ``slots x prompt_len`` tokens, padding
 rows and pads included, as the reference's.
 
-``SliceSpec(kv_block > 0)`` serves the dense family from the pooled
+``SliceSpec(kv_block > 0)`` serves the dense family (only) from the pooled
 prefix-shared KV cache (``serve/kvpool.py``): each slot's cache rows are a block table over one
 pool, an admission whose prompt starts with blocks another request already
 prefilled maps them and prefills only the rest, left-aligned, in dispatches
@@ -117,7 +118,7 @@ class ServeEngine:
     """Continuous-batching serving engine on one device.
 
     Args:
-      cfg: model config (dense or MoE family).
+      cfg: model config (dense, MoE, SSM or hybrid family).
       params: param tree (JAX layout, see ``repro_torch.interop``) already
         on ``device``.
       spec: `SliceSpec` serving envelope.
@@ -138,7 +139,7 @@ class ServeEngine:
             raise NotImplementedError(
                 "the whisper legacy full-batch path waits for ROADMAP.md "
                 "queue 1, item 11")
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in TF.DECODER_FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} waits for ROADMAP.md queue 1, item 11")
         if spec.kv_block and cfg.family != "dense":

@@ -93,6 +93,8 @@ def _close(got, want):
                                rtol=RTOL)
 
 
+HYMBA_LENS = [0, 1, 1024, 1025, 1152, 5, 100, 500, 1023, 1026, 1100, 1151,
+              64, 700, 1088, 1090]
 ROW1_PINNED_CASES = [                       # (B, H, KH, S, d, lens), options
     ((2, 4, 4, 40, 16, [0, 40]), dict()),
     ((3, 8, 2, 64, 16, [0, 1, 64]), dict(window=8)),
@@ -103,7 +105,11 @@ ROW1_PINNED_CASES = [                       # (B, H, KH, S, d, lens), options
 DECODE_CASES = ROW1_PINNED_CASES + [
     # qwen3-moe-30b-a3b: 32 query heads over 4 KV heads ((H / KH) d = 1024)
     ((8, 32, 4, 1024, 128, [0, 1, 100, 257, 512, 700, 1000, 1024]), dict()),
-]
+    # hymba-1.5b: 25 query heads over 5 KV heads (a head group of 8 holds
+    # 5), d = 64, its window of 1024 and a global layer; lengths around
+    # the window edge
+] + [((16, 25, 5, 1152, 64, HYMBA_LENS), kw)
+     for kw in (dict(window=1024), dict())]
 
 
 @pytest.mark.parametrize("shape,kw", DECODE_CASES, ids=str)
@@ -131,6 +137,8 @@ FLASH_CASES = [                             # (B, H, KH, T, S, d), options
     ((1, 16, 4, 512, 512, 64), dict(window=200, softcap=10.0)),
     ((1, 8, 1, 512, 512, 128), dict(window=70)),
     ((2, 4, 2, 200, 333, 16), dict(causal=False, window=50)),
+    # hymba-1.5b's admission wave: 16 prompts of 1088, window 1024, GQA 5
+    ((16, 25, 5, 1088, 1088, 64), dict(window=1024)),
 ]
 
 
@@ -257,6 +265,32 @@ def test_moe_engine_greedy_chunk_invariant_on_card(card):
             assert DA.launches > d0 and FA.launches > f0
             outs.append([list(r.out_tokens) for r in reqs])
         assert outs[0] == outs[1] == outs[2]
+
+
+def test_ssm_engines_greedy_chunk_invariant_on_card(card):
+    """Reduced mamba2-130m and hymba-1.5b through the engine on the card,
+    prompts of 24 crossing hymba's reduced window of 16: ragged budgets give
+    the same tokens at chunks 1, 3 and 8; hymba launches rows 1 and 2,
+    mamba2 neither."""
+    for arch in ("mamba2-130m", "hymba-1.5b"):
+        cfg = registry.get_reduced(arch)
+        params = api.init_params(cfg, seed=0, device=card)
+        outs = []
+        for chunk in (1, 3, 8):
+            eng = ServeEngine(cfg, params, SliceSpec(
+                slots=2, max_len=64, prompt_len=24, chunk=chunk), device=card)
+            rng = np.random.default_rng(0)
+            reqs = [eng.submit(rng.integers(0, 512, size=n),
+                               max_new_tokens=m)
+                    for n, m in ((5, 12), (24, 6), (19, 10), (12, 7),
+                                 (30, 9))]
+            d0, f0 = DA.launches, FA.launches
+            eng.run()
+            hybrid = cfg.family == "hybrid"
+            assert (DA.launches > d0) == (FA.launches > f0) == hybrid
+            outs.append([list(r.out_tokens) for r in reqs])
+        assert outs[0] == outs[1] == outs[2]
+        assert all(0 <= t < cfg.vocab_size for r in outs[0] for t in r)
 
 
 def _fused_inputs(rng, dev, dims, spec, B):

@@ -425,8 +425,9 @@ def test_unported_training_paths_name_their_items(dlrm):
     with pytest.raises(NotImplementedError, match="item 12"):
         TSTEPS.make_train_step(run.model, run.shape,
                                TPar(grad_compression="int8"), TOpt())
-    # the dense and MoE families train; the other families wait
-    ssm = TREG.get_reduced("olmo-1b").replace(family="ssm")
+    # the dense and MoE families train; the other families wait (the SSM
+    # and hybrid families serve, and train with a later part of item 11)
+    ssm = TREG.get_reduced("mamba2-130m")
     with pytest.raises(NotImplementedError, match="item 11"):
         TSTEPS.loss_fn(ssm, {}, {})
     with pytest.raises(NotImplementedError, match="item 11"):
