@@ -252,6 +252,26 @@ each of which fails the run if it fails:
      same requests at chunk 1 bitwise equal; tokens/s, mean and p95 TTFT,
      ms a decode step, peak memory and the card's idle share over one
      profiled chunk.
+ 19. SSM and hybrid training (run after phase 18, on an empty card):
+     reduced mamba2-130m and hymba-1.5b card vs CPU with the same f32
+     weights and batch, one step's loss and gradients within the training
+     bars (every leaf within 2^-5 of its largest |g|; the hybrid's
+     ``ssm.dt_bias`` and ``ssm.A_log`` within 2^-5 of their layer's
+     ``ssm`` subtree) and the card's step with remat on and off bitwise
+     equal; the SSD block's gradient at full width (mamba2's and hymba's
+     SSD widths, one layer, B = 1, T = 512: two chunks of 256, where the
+     reference's chunked gradient is NaN) through ``ssd_forward`` against
+     the sequential ``ssd_reference``'s, every leaf finite and within
+     2^-5; then full-width mamba2-130m and hymba-1.5b (f32 from seed 0) on
+     phase 12's cell (train_2k, remat, xent chunks of 256, Adam at lr
+     3e-4, warmup 5): one 2048-token row's gradient finite on every leaf,
+     ``Slice.train`` for 3 warm and 10 timed steps, then one profiled:
+     tokens/s, ms a step (median, spread), finite losses that fall from
+     the first, params that move, peak allocated < 72 GB, Adam's time
+     and share, the card's idle share; the trained params
+     cast to bf16 and served (4 prompts of 64 tokens, 32 new tokens
+     each), hymba's rows 1 and 2 counted (``launches_hymba_trained``),
+     mamba2 launching neither.
 
 Prints, last: a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and
@@ -1153,19 +1173,22 @@ def profile_chunk(torch, np, cfg, params, engine_mod, spec):
             "top_device_ms": [[n[:70], t] for n, t in top]}
 
 
-def profile_busy(torch, fn, top=6):
+def profile_busy(torch, fn, top=6, wall=None):
     """The card's busy and idle share over one call of ``fn`` (after a warm
     call): summed device kernel time from torch.profiler over the wall
-    time of the same call unprofiled."""
+    time of the same call unprofiled.  With ``wall`` (s, a like call timed
+    already) ``fn`` runs once, profiled, against it.  Only the card's
+    activity is recorded: host-side op events, tens of thousands a
+    training step, took the profiler longer to gather than the step."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    if wall is None:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     dev_events = [e for e in prof.events()
@@ -4110,6 +4133,326 @@ def ssm_phase(torch, np, F, registry, api, engine_mod, DA, FA, REF, TF,
     return out, launches["hymba-1.5b"]
 
 
+# Phase 19: SSM and hybrid training.  mamba2-130m and hymba-1.5b at full
+# width on phase 12's cell; the reduced archs card vs CPU; the SSD block's
+# backward at full width, where the reference's is NaN
+SSM_SMALL_SHAPE = ("ssm_check", "train", 32, 4)
+SSM_TRAIN_PEAK_LIMIT = 72e9
+SSD_GRAD_T = 512                # two chunks of 256
+# the trained models served: 4 prompts of 64 tokens, 32 new tokens each
+SSM_TRAINED_SPEC = dict(slots=4, max_len=96, prompt_len=64, chunk=8)
+SSM_TRAINED_SERVE = dict(n=4, prompt=64, new_tokens=32)
+# the hybrid's two per-head decay leaves: cancelling sums over every
+# position, 30-100x smaller than the rest of the SSD block's gradient, held
+# to 2^-5 of the largest |g| of their layer's ``ssm`` subtree
+SSM_DECAY_LEAVES = ("A_log", "dt_bias")
+
+
+def _leaf_names(tree, prefix=""):
+    """Leaf paths in ``OPT.leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def ssm_grad_shares(torch, cfg, names, got, want, what):
+    """Each gradient leaf's max |got - want| over LOGIT_REL_TOL x its
+    largest |want|; a hybrid's ``ssm`` decay leaves (SSM_DECAY_LEAVES)
+    layer by layer over LOGIT_REL_TOL x the largest |want| of that layer's
+    ``ssm`` subtree.  Fails above 1 or where ``got`` is not finite.
+    Returns (the worst share and its leaf, the worst per-leaf share and
+    its leaf)."""
+    got = [g.detach().float().cpu() for g in got]
+    want = [w.detach().float().cpu() for w in want]
+    own = {}
+    for n, a, b in zip(names, got, want):
+        check(bool(torch.isfinite(a).all()), f"{what}: {n} not finite")
+        own[n] = ((a - b).abs().max() / (LOGIT_REL_TOL * b.abs().max())
+                  .clamp_min(1e-30)).item()
+    shares = dict(own)
+    if cfg.family == "hybrid":
+        L = cfg.num_layers
+        ssm = [i for i, n in enumerate(names) if n.startswith("/layers/ssm/")]
+        layer_max = torch.stack([want[i].reshape(L, -1).abs().amax(1)
+                                 for i in ssm]).amax(0)
+        for i in ssm:
+            if names[i].rsplit("/", 1)[1] in SSM_DECAY_LEAVES:
+                err = (got[i] - want[i]).reshape(L, -1).abs().amax(1)
+                shares[names[i]] = (err / (LOGIT_REL_TOL * layer_max)
+                                    ).max().item()
+    for n, v in shares.items():
+        check(v <= 1.0, f"{what}: {n} at {v:.3f} of its bar")
+    w, wo = max(shares, key=shares.get), max(own, key=own.get)
+    return {"worst": [w, shares[w]], "worst_per_leaf": [wo, own[wo]]}
+
+
+def ssm_train_reference_phase(torch, registry, api, Dataset, STEPS,
+                              ShapeConfig, ParallelConfig, dev="cuda"):
+    """Reduced mamba2-130m and hymba-1.5b with the same f32 weights (seed 0)
+    and batch on the CPU and on the card (xent chunks of 8): one step's
+    loss within the curve bar and its gradients within the training bars
+    (`ssm_grad_shares`); on the card, the same step with remat on and off
+    bitwise equal."""
+    out = {}
+    shape = ShapeConfig(*SSM_SMALL_SHAPE)
+    for arch in SSM_ARCHS:
+        cfg = registry.get_reduced(arch)
+        p_cpu = api.init_params(cfg, seed=0, device="cpu",
+                                dtype=torch.float32)
+        p_gpu = _to(p_cpu, dev)
+        b_cpu = {k: torch.as_tensor(v)
+                 for k, v in Dataset(cfg, shape).batch(0).items()}
+        runs = {}
+        for name, p, b, remat in (("cpu", p_cpu, b_cpu, "none"),
+                                  ("card", p_gpu, _to(b_cpu, dev), "none"),
+                                  ("card_remat", p_gpu, _to(b_cpu, dev),
+                                   "block")):
+            runs[name] = STEPS.value_and_grad(
+                cfg, ParallelConfig(remat=remat, xent_chunk=8), p, b)
+        (mc, gc_), (mg, gg), (mr, gr) = (runs[k] for k in
+                                         ("cpu", "card", "card_remat"))
+        check(_loss_near(float(mg["loss"]), float(mc["loss"])),
+              f"{arch}: card loss {float(mg['loss'])} vs CPU "
+              f"{float(mc['loss'])}")
+        res = ssm_grad_shares(torch, cfg, _leaf_names(p_cpu), gg, gc_,
+                              f"{arch} card vs CPU gradients")
+        same = (torch.equal(mg["loss"], mr["loss"])
+                and all(torch.equal(a, b) for a, b in zip(gg, gr)))
+        check(same, f"{arch}: remat on and off differ on the card")
+        out[arch] = dict(res, loss_cpu=float(mc["loss"]),
+                         loss_card=float(mg["loss"]),
+                         remat_bitwise=same, leaves=len(gg))
+    return out
+
+
+def ssd_grad_phase(torch, registry, SSM, dev="cuda"):
+    """The SSD block's backward at full width on the card: mamba2's and
+    hymba's SSD widths, one layer (f32 params from ``ssd_init``, seed 19),
+    u ~ N(0, 1) in bf16 of (1, 512, d_model): the gradient of sum(out * w)
+    through the chunked ``ssd_forward`` (two chunks of 256, where the
+    reference's is NaN) against the sequential f32 ``ssd_reference``'s,
+    every leaf (and u's) finite and within LOGIT_REL_TOL of its largest
+    |g|."""
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = registry.get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(19)
+        p0 = SSM.ssd_init(cfg, gen, device=dev, dtype=torch.float32)
+        u0 = torch.randn((1, SSD_GRAD_T, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        w = torch.randn((1, SSD_GRAD_T, cfg.d_model), generator=gen,
+                        device=dev)
+        grads = {}
+        for name, fn in (("chunked", SSM.ssd_forward),
+                         ("sequential", SSM.ssd_reference)):
+            p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+            u = u0.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn(cfg, p, u)[0]
+            (y.float() * w).sum().backward()
+            torch.cuda.synchronize()
+            grads[name] = ({k: v.grad for k, v in p.items()}, u.grad,
+                           (time.perf_counter() - t0) * 1e3)
+        (gc_, guc, ms_c), (gs, gus, ms_s) = grads["chunked"], grads[
+            "sequential"]
+        shares = {}
+        for k, a, b in [(k, gc_[k], gs[k]) for k in sorted(gc_)] + [
+                ("u", guc, gus)]:
+            a, b = a.float(), b.float()
+            check(bool(torch.isfinite(a).all()),
+                  f"{arch} SSD gradient: {k} not finite")
+            shares[k] = ((a - b).abs().max()
+                         / (LOGIT_REL_TOL * b.abs().max())).item()
+            check(shares[k] <= 1.0, f"{arch} SSD gradient: {k} at "
+                                    f"{shares[k]:.3f} of its bar")
+        worst = max(shares, key=shares.get)
+        DI, H, P, N = SSM.ssm_dims(cfg)
+        out[arch] = dict(heads=H, head_dim=P, state=N, T=SSD_GRAD_T,
+                         worst=[worst, shares[worst]], shares=shares,
+                         ms_chunked_fwd_bwd=ms_c,
+                         ms_sequential_fwd_bwd=ms_s)
+        del grads
+    return out
+
+
+def ssm_train_phase(torch, np, cfg, CL, RunConfig, ShapeConfig,
+                    ParallelConfig, OptimizerConfig, TrainerState, STEPS,
+                    OPT, api, engine_mod, DA, FA, dev="cuda"):
+    """Full-width ``cfg`` (f32 from seed 0) on phase 12's cell (train_2k,
+    remat, xent chunks of 256, Adam at lr 3e-4, warmup 5): first
+    ``STEPS.value_and_grad`` of the batch's first 2048-token row, every
+    leaf finite; then ``Slice.train`` for 3 warm and 10 timed steps
+    (finite losses that fall from the first, params that move, peak
+    allocated < 72 GB), one more step profiled against the median timed
+    step's wall time; Adam alone timed once more on the trained state; then the trained params cast to bf16 and served (4 prompts of
+    64 tokens, 32 new tokens each, rows 1 and 2 counted: launched on the
+    hybrid, never on the SSM).  ``split_s`` times each part."""
+    check(torch.cuda.memory_allocated() < SSM_EMPTY_LIMIT,
+          f"{torch.cuda.memory_allocated()} bytes allocated before training "
+          f"{cfg.name}")
+    run = _dense_run(cfg, RunConfig, ShapeConfig, ParallelConfig,
+                     OptimizerConfig)
+    accum = STEPS.pick_accum_steps(cfg, run.shape,
+                                   xent_chunk=run.parallel.xent_chunk)
+    sc = CL.Supercomputer(device=dev)
+    sl = sc.allocate((8, 8, 8))
+    sess = sl.train(run)
+    split = {}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the Trainer's own init (its seed, f32 master weights), without m, v
+    params = api.init_params(cfg, seed=run.seed, device=dev,
+                             dtype=torch.float32)
+    torch.cuda.synchronize()
+    split["init"] = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    out = {"layers": cfg.num_layers, "params": n_params,
+           "shape": list(DENSE_SHAPE), "microbatches": accum,
+           "xent_chunk": DENSE_XENT_CHUNK, "remat": run.parallel.remat}
+    # -- one 2048-token row's gradient, before the optimizer state exists
+    t0 = time.perf_counter()
+    row = {k: torch.as_tensor(v[:1], device=dev)
+           for k, v in sess.trainer.dataset.batch(0).items()}
+    m, grads = STEPS.value_and_grad(cfg, run.parallel, params, row)
+    bad = [n for n, g in zip(_leaf_names(params), grads)
+           if not bool(torch.isfinite(g).all())]
+    check(not bad and math.isfinite(float(m["loss"])),
+          f"{cfg.name}: loss {float(m['loss'])}, gradient leaves not "
+          f"finite: {bad}")
+    out["first_row_gradient"] = {
+        "loss": float(m["loss"]), "leaves": len(grads), "finite": True,
+        "max_abs_grad": max(float(g.abs().max()) for g in grads)}
+    del grads, row, m
+    split["first_row_gradient"] = time.perf_counter() - t0
+    # -- training through Slice.train
+    state = TrainerState(params, OPT.init(run.optimizer, params), 0)
+    del params
+    probes = [state.params["embed"][:1024],
+              state.params["layers"]["ssm"]["in_proj"][0, :64],
+              state.params["layers"]["ssm"]["A_log"][-1],
+              state.params["layers"]["ssm"]["dt_bias"][0]]
+    if cfg.family == "hybrid":
+        probes.append(state.params["layers"]["attn"]["wq"][-1, :64])
+    before = [t.clone() for t in probes]
+    steps = DENSE_WARM + DENSE_TIMED
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = []
+    t_train = time.perf_counter()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        sess.run(i + 1, state=state if i == 0 else None, log_every=1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    split["train_13_steps"] = time.perf_counter() - t_train
+    peak = torch.cuda.max_memory_allocated()
+    state = sess.state
+    losses = [x["loss"] for x in sess.metrics_log]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"{cfg.name} training: losses {losses}")
+    check(losses[-1] < losses[0], f"{cfg.name} training: the loss did not "
+                                  f"fall from its first value: {losses}")
+    moved = [not torch.equal(a, b) and bool(torch.isfinite(b).all())
+             for a, b in zip(before, probes)]
+    check(all(moved), f"{cfg.name} training: params moved {moved}")
+    check(peak < SSM_TRAIN_PEAK_LIMIT,
+          f"{cfg.name} training: peak allocated {peak / 1e9:.2f} GB over "
+          f"{SSM_TRAIN_PEAK_LIMIT / 1e9:.0f} GB")
+    timed = step_s[DENSE_WARM:]
+    med = sorted(timed)[len(timed) // 2]
+    t0 = time.perf_counter()
+    prof = profile_busy(torch, lambda: sess.run(sess.state.step + 1,
+                                                log_every=1), top=25,
+                        wall=med)
+    split["profiled_step"] = time.perf_counter() - t0
+    state = sess.state
+    # Adam alone, once more on the trained state (its time does not depend
+    # on the gradient's values)
+    grads = [torch.zeros_like(t) for t in OPT.leaves(state.params)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    OPT.apply(run.optimizer, state.params, grads, state.opt_state)
+    torch.cuda.synchronize()
+    adam_s = time.perf_counter() - t0
+    del grads
+    tokens = run.shape.global_batch * run.shape.seq_len
+    out.update(
+        losses=losses, steps_warm=DENSE_WARM, steps_timed=DENSE_TIMED,
+        ms_per_step=[t * 1e3 for t in step_s], median_ms_per_step=med * 1e3,
+        spread_ms=[min(timed) * 1e3, max(timed) * 1e3],
+        tokens_per_s=tokens * len(timed) / sum(timed),
+        peak_mem_gb=peak / 1e9, static_state_gb=4 * 4 * n_params / 1e9,
+        profile_step=prof,
+        adam_ms=adam_s * 1e3, adam_share_of_median_step=adam_s / med)
+    # -- serve the trained weights, in bf16
+    t0 = time.perf_counter()
+    bf16 = OPT.tree_map(lambda t: t.to(torch.bfloat16), state.params)
+    del state, probes, before
+    sess.close()
+    sl.free()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(19)
+    n = SSM_TRAINED_SERVE
+    prompts = [rng.integers(0, cfg.vocab_size, size=n["prompt"])
+               for _ in range(n["n"])]
+    _, _, sstats, launches = _engine_run(
+        torch, engine_mod, cfg, bf16, engine_mod.SliceSpec(
+            **SSM_TRAINED_SPEC), prompts, n["new_tokens"], DA, FA, dev)
+    if cfg.family == "hybrid":
+        check(launches["paged_decode_attention"] > 0
+              and launches["flash_attention"] > 0,
+              f"serving the trained {cfg.name}: launches {launches}")
+    else:
+        check(not any(launches.values()),
+              f"{cfg.name} has no attention but launched {launches}")
+    del bf16
+    out["serve"] = {k: sstats[k] for k in ("requests_done", "tokens",
+                                           "tokens_per_s", "mean_ttft_s",
+                                           "decode_steps")}
+    out["launches"] = launches
+    split["serve"] = time.perf_counter() - t0
+    out["split_s"] = split
+    return out, launches
+
+
+def ssm_training_phases(torch, np, registry, api, Dataset, CL, STEPS, OPT,
+                        SSM, TrainerState, RunConfig, ShapeConfig,
+                        ParallelConfig, OptimizerConfig, engine_mod, DA, FA,
+                        dev="cuda"):
+    """Phase 19: SSM and hybrid training.  The reduced archs card vs CPU
+    with remat on and off, the SSD block's backward at full width, then
+    full-width mamba2-130m and hymba-1.5b trained and served."""
+    t_phase = time.perf_counter()
+    out = {"reference": ssm_train_reference_phase(
+        torch, registry, api, Dataset, STEPS, ShapeConfig, ParallelConfig,
+        dev)}
+    out["reference_s"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    out["ssd_gradient"] = ssd_grad_phase(torch, registry, SSM, dev)
+    out["ssd_gradient_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {}
+    for arch in SSM_ARCHS:
+        t0 = time.perf_counter()
+        out[arch], launches[arch] = ssm_train_phase(
+            torch, np, registry.get_config(arch), CL, RunConfig, ShapeConfig,
+            ParallelConfig, OptimizerConfig, TrainerState, STEPS, OPT, api,
+            engine_mod, DA, FA, dev)
+        out[arch]["arch_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches["hymba-1.5b"]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4160,6 +4503,7 @@ def main(argv=None):
     from repro_torch.models import dlrm as DL
     from repro_torch.models import moe as MOE
     from repro_torch.models import quant as QU
+    from repro_torch.models import ssm as SSM
     from repro_torch.models import transformer as TF
     from repro_torch.optim import adam as OPT
     from repro_torch.serve import engine as engine_mod
@@ -4214,6 +4558,13 @@ def main(argv=None):
     ssm, hymba_launches = ssm_phase(torch, np, F, registry, api, engine_mod,
                                     DA, FA, REF, TF)
     log("ssm and hybrid:", json.dumps(ssm))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_train, hymba_train_launches = ssm_training_phases(
+        torch, np, registry, api, Dataset, CL, STEPS, OPT, SSM, TrainerState,
+        RunConfig, ShapeConfig, ParallelConfig, OptimizerConfig, engine_mod,
+        DA, FA)
+    log("ssm and hybrid training:", json.dumps(ssm_train))
     gc.collect()
     torch.cuda.empty_cache()
     stats, launches = serve_phase(torch, np, registry.get_config("olmo-1b"),
@@ -4335,6 +4686,11 @@ def main(argv=None):
     # full-width hymba-1.5b served (H = 25 over KH = 5, window 1024)
     decode["launches_hymba"] = hymba_launches["paged_decode_attention"]
     prefill["launches_hymba"] = hymba_launches["flash_attention"]
+    # the trained full-width hymba-1.5b served
+    decode["launches_hymba_trained"] = hymba_train_launches[
+        "paged_decode_attention"]
+    prefill["launches_hymba_trained"] = hymba_train_launches[
+        "flash_attention"]
     fused, gather = (dlrm_kern[DLRM_BATCH][n]
                      for n in ("fused_lookup", "embedding_gather"))
     fused["launches"] = dlrm_launches["fused_lookup"]
@@ -4353,7 +4709,8 @@ def main(argv=None):
     more = ("launches_hot", "launches_keys", "launches_pooled_engine",
             "launches_int8_engine", "launches_trained_serve",
             "launches_fleet", "launches_mixed", "launches_moe",
-            "launches_moe_trained", "launches_hymba")
+            "launches_moe_trained", "launches_hymba",
+            "launches_hymba_trained")
     kernels = {"kernels": [{k: kern[k] for k in keys}
                            | {k: kern[k] for k in more if k in kern}
                            for kern in (decode, pooled["q8"], pooled["bt"],
@@ -4382,7 +4739,7 @@ def main(argv=None):
                  per_table_training=per_table,
                  dense_training=dense, fault_drill=drill,
                  fleet=fleet, mixed_tenancy=mixed, moe=moe,
-                 moe_training=moe_train, ssm=ssm,
+                 moe_training=moe_train, ssm=ssm, ssm_training=ssm_train,
                  **kernels), indent=2))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -5,9 +5,10 @@ gradient with respect to detached views of the params (so the params
 themselves never require a gradient), a backward that adds each
 microbatch's share straight into the f32 accumulator (`accumulate_grad`,
 one microbatch or several), then the in-place optimizer update.  The
-metrics dict has the reference's keys.  A decoder's loss (the dense and MoE families) is the token cross-entropy,
-whole or chunked (``ParallelConfig.xent_chunk``), plus 0.01 x the MoE
-load-balance loss, with per-layer remat; the DLRM's is its BCE.
+metrics dict has the reference's keys.  A decoder's loss (the dense, MoE,
+SSM and hybrid families) is the token cross-entropy, whole or chunked
+(``ParallelConfig.xent_chunk``), plus 0.01 x the MoE load-balance loss,
+with per-layer remat; the DLRM's is its BCE.
 
 Not ported yet: the serving step functions, and compressed gradient
 exchange (``grad_compression != "none"``, queue 1, item 12).
@@ -72,9 +73,9 @@ def loss_fn(cfg: ModelConfig, params, batch,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (loss, metrics).
 
-    Dense and MoE: token cross-entropy of the teacher-forced
+    Dense, MoE, SSM and hybrid: token cross-entropy of the teacher-forced
     `api.forward` plus 0.01 x aux (the MoE layers' load-balance losses
-    summed; 0 for the dense family), with ``pcfg.remat`` ("none" or
+    summed; 0 for the other families), with ``pcfg.remat`` ("none" or
     per-layer recompute), ``pcfg.attn_impl`` and, when ``pcfg.xent_chunk``
     is set, the chunked cross-entropy over the final hidden states;
     metrics ``loss`` (the cross-entropy) and ``aux``.  A MoE layer's
@@ -88,7 +89,7 @@ def loss_fn(cfg: ModelConfig, params, batch,
         from repro_torch.models import dlrm as DL
         loss, _ = DL.loss_fn(cfg, params, batch, fused=pcfg.emb_pipeline)
         return loss, {"loss": loss}
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in TF.DECODER_FAMILIES:
         raise NotImplementedError(
             f"training the {cfg.family!r} family waits for ROADMAP.md "
             f"queue 1, item 11")

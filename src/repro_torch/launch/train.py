@@ -7,6 +7,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch qwen3-moe-30b-a3b --reduced --device cpu --steps 20 \
         --batch 8 --seq 64 --optimizer adafactor
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+        --reduced --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+        --reduced --device cpu --steps 3
 
 trains on the card by default (``--device cpu`` for the CPU) with
 ``--optimizer`` (adam, sgd or adafactor, as the reference offers) and
@@ -29,7 +33,7 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64,
-                    help="tokens a sequence (dense archs)")
+                    help="tokens a sequence (decoder archs)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--ckpt-dir", default=None)

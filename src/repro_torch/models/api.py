@@ -1,10 +1,9 @@
 """Family-dispatching model API of the port (``repro/models/api.py``).
 
-The dense and MoE families train (`forward`, with the aux loss the MoE
-layers sum) and serve (prefill, decode; the MoE family not on the pooled
-KV cache, as in the reference); the SSM (mamba2) and hybrid (hymba)
-families serve and run the teacher-forced `forward`, neither on the
-pooled KV cache; the DLRM family scores and trains
+The dense, MoE, SSM (mamba2) and hybrid (hymba) families train
+(`forward`, with the aux loss the MoE layers sum) and serve (prefill,
+decode; only the dense family on the pooled KV cache, as in the
+reference); the DLRM family scores and trains
 (`init_params`, `forward`, `make_batch`).  Every other family, and every
 entry point a family does not have yet, raises ``NotImplementedError``
 naming its ROADMAP.md item.  Entry points that create tensors take

@@ -2,9 +2,10 @@
 (``repro/models/ssm.py``).
 
 Three implementations of the same layer:
-  * `ssd_forward`   — chunked matmul form (prefill, teacher-forced forward):
-    attention-like products inside each chunk, then the chunk states passed
-    from chunk to chunk;
+  * `ssd_forward`   — chunked matmul form (prefill, the teacher-forced
+    forward of training): attention-like products inside each chunk, then
+    the chunk states passed from chunk to chunk; autograd's backward, which
+    no in-place op in it disturbs;
   * `ssd_step`      — O(1) recurrent decode step;
   * `ssd_reference` — the naive sequential recurrence in f32 (test oracle).
 
@@ -25,6 +26,14 @@ tail is bf16.  A bf16 product is exact in f32, so the port widens the
 rounded operands and multiplies in f32.  The reference passes the states
 between chunks with ``jax.lax.associative_scan``; the port walks the chunks
 in order, which computes the same sums with other f32 roundings.
+
+One departure from the reference, in the backward only: the reference
+computes the intra-chunk decay as ``where(tri, exp(cum_i - cum_j), 0)``.
+Above the diagonal that exponent is positive and, at chunk 256 with A up to
+16, passes 88: ``exp`` overflows to inf, and the zero cotangent ``where``
+sends there gives 0 x inf = NaN in the gradients of ``in_proj``, ``A_log``
+and ``dt_bias``.  The port masks the exponent with -inf before the
+``exp``: the same forward, bit for bit, and a finite backward.
 
 There is no kernel here: the reference's SSD is plain ``jnp``, and this is
 plain torch.
@@ -176,9 +185,14 @@ def ssd_forward(cfg: ModelConfig, p, u, *, init_state=None,
 
     # intra-chunk: M[h, i, j] = (C_i . B_j) exp(cum_i - cum_j) for i >= j
     CB = torch.matmul(_bf16(Cc), _bf16(Bc).transpose(-1, -2))    # (B,nc,Q,Q)
+    # masked to -inf before the exp (module docstring); ``seg`` is filled
+    # in place as no backward reads it, the exp's output, which its
+    # backward reads, never
     tri = torch.ones((Q, Q), dtype=torch.bool, device=u.device).tril()
-    M = torch.exp(cumT[..., :, None] - cumT[..., None, :])       # (B,nc,H,Q,Q)
-    M = M.masked_fill_(~tri, 0.0).mul_(CB[:, :, None])
+    seg = cumT[..., :, None] - cumT[..., None, :]                # (B,nc,H,Q,Q)
+    M = torch.exp(seg.masked_fill_(~tri, float("-inf")))
+    del seg
+    M = M * CB[:, :, None]
     xdt = xc.float() * dtc[..., None]                            # (B,nc,Q,H,P)
     y = torch.matmul(_bf16(M), _bf16(xdt).permute(0, 1, 3, 2, 4))
     del M                                                        # (B,nc,H,Q,P)
@@ -189,14 +203,15 @@ def ssd_forward(cfg: ModelConfig, p, u, *, init_state=None,
     S = torch.matmul(xw.permute(0, 1, 3, 4, 2),
                      Bc.float()[:, :, None])                     # (B,nc,H,P,N)
     chunk_decay = torch.exp(cum[:, :, -1, :])                    # (B,nc,H)
-    before = torch.zeros_like(S)
-    decay_excl = torch.ones_like(chunk_decay)
     acc, dA = S[:, 0], chunk_decay[:, 0]
+    befores, decays = [torch.zeros_like(acc)], [torch.ones_like(dA)]
     for c in range(1, nc):
-        before[:, c] = acc
-        decay_excl[:, c] = dA
+        befores.append(acc)
+        decays.append(dA)
         acc = acc * chunk_decay[:, c][..., None, None] + S[:, c]
         dA = dA * chunk_decay[:, c]
+    before = torch.stack(befores, dim=1)                         # (B,nc,H,P,N)
+    decay_excl = torch.stack(decays, dim=1)                      # (B,nc,H)
     if init_state is not None:
         init = init_state.float()
         before = before + init[:, None] * decay_excl[..., None, None]

@@ -465,7 +465,8 @@ def _dense_layer(cfg: ModelConfig, lp, x, positions, window, *,
                  kv_chunk: int = 1024, attn_impl: str = "blocked"):
     """One pre-norm layer over the whole sequence (the reference's
     ``_dense_layer``): plain-torch attention and the SSD block's
-    `ssm.ssd_forward`, differentiable.  Returns (x, aux) as
+    `ssm.ssd_forward`, both with a backward (the SSD's finite at chunk
+    256, where the reference's is NaN).  Returns (x, aux) as
     `_layer_tail`."""
     a = cfg.attention
     h = L.apply_norm(cfg, lp["ln1"], x)

@@ -7,9 +7,9 @@ one device).
 ``log_every`` steps into the ``train.metrics`` series of its
 ``obs.Telemetry`` (`metrics_log` is a view of it), inside a ``train.step``
 span.  Params and optimizer state are updated in place.  The decoder
-families (dense and MoE) train f32 master weights (cast to bf16 at each
-use); the DLRM trains through the lookup route ``run.parallel.emb_pipeline``
-picks.
+families (dense, MoE, SSM and hybrid) train f32 master weights (cast to
+bf16 at each use); the DLRM trains through the lookup route
+``run.parallel.emb_pipeline`` picks.
 
 With ``ckpt_dir`` it checkpoints every ``ckpt_every`` steps and at the end
 (``train/checkpoint.py``, the reference's format v2: a checkpoint of either
@@ -36,6 +36,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.data.synthetic import Dataset
 from repro_torch.launch import steps as STEPS
 from repro_torch.models import api
+from repro_torch.models import transformer as TF
 from repro_torch.obs import Telemetry
 from repro_torch.optim import adam as OPT
 from repro_torch.train import checkpoint as CKPT
@@ -72,7 +73,7 @@ class Trainer:
                  slice_dims: Optional[tuple] = None,
                  obs: Optional[Telemetry] = None,
                  obs_labels: Optional[Dict[str, Any]] = None):
-        if run.model.family not in ("dense", "moe", "dlrm"):
+        if run.model.family not in TF.DECODER_FAMILIES + ("dlrm",):
             raise NotImplementedError(
                 f"training the {run.model.family!r} family waits for "
                 f"ROADMAP.md queue 1, item 11")
@@ -103,7 +104,7 @@ class Trainer:
     def _param_dtype(self):
         # a decoder trains f32 master weights (the reference's
         # param_dtype); a DLRM's params are f32 anyway
-        return (torch.float32 if self.run.model.family in ("dense", "moe")
+        return (torch.float32 if self.run.model.family in TF.DECODER_FAMILIES
                 else None)
 
     def init_state(self) -> TrainerState:
