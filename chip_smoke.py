@@ -250,8 +250,8 @@ each of which fails the run if it fails:
      in-vocabulary ids, hymba's rows 1 and 2 on every layer of every step
      and admission (``launches_hymba``), mamba2 launching neither; the
      same requests at chunk 1 bitwise equal; tokens/s, mean and p95 TTFT,
-     ms a decode step, peak memory and the card's idle share over one
-     profiled chunk.
+     ms a decode step, peak memory (< 72 GB, checked) and the card's idle
+     share over one profiled chunk.
  19. SSM and hybrid training (run after phase 18, on an empty card):
      reduced mamba2-130m and hymba-1.5b card vs CPU with the same f32
      weights and batch, one step's loss and gradients within the training
@@ -265,13 +265,37 @@ each of which fails the run if it fails:
      2^-5; then full-width mamba2-130m and hymba-1.5b (f32 from seed 0) on
      phase 12's cell (train_2k, remat, xent chunks of 256, Adam at lr
      3e-4, warmup 5): one 2048-token row's gradient finite on every leaf,
-     ``Slice.train`` for 3 warm and 10 timed steps, then one profiled:
+     ``Slice.train`` for 2 warm and 5 timed steps, then one profiled:
      tokens/s, ms a step (median, spread), finite losses that fall from
      the first, params that move, peak allocated < 72 GB, Adam's time
      and share, the card's idle share; the trained params
      cast to bf16 and served (4 prompts of 64 tokens, 32 new tokens
      each), hymba's rows 1 and 2 counted (``launches_hymba_trained``),
      mamba2 launching neither.
+ 20. The dense variants (run after phase 19, on an empty card: < 3 GB
+     allocated before each model, checked): rows 1, 1q, 3 and 3q at
+     gemma2-9b's head_dim of 256 (H = 16 over KH = 8, softcap 50, scale
+     256^-0.5; decode B = 8, S = 4608, lengths 0, 1, 4096, 4097 and 4608
+     among 8, window 4096 and global; rows 3 and 3q through permuted
+     block tables, bitwise rows 1 and 1q on the gathered view; rows 1q, 3
+     and 3q once through ``ops``, counted) and row 2 (B = 1 and 8, T = S
+     = 4480, window 4096; B = 8, T = S = 512, global), and rows 1 and 2 at
+     qwen2-7b's G = 7 (H = 28 over KH = 4), each against its plain
+     version, timed beside it, its bound and, in turns, SDPA (without
+     the softcap, which SDPA lacks: a yardstick only); reduced qwen2-7b,
+     mistral-nemo-12b and gemma2-9b card vs CPU (a 24-token prefill and
+     12 greedy steps, the card fed the CPU's picks: logits within the
+     serve bar, picks equal but at near ties); then full-width qwen2-7b
+     and mistral-nemo-12b on the serve phase's engine and trace, and
+     gemma2-9b in ``ServeEngine(SliceSpec(slots=8, max_len=4608,
+     prompt_len=4480, chunk=8))`` on 8 prompts of 4000-4480 tokens, 64
+     new tokens each, counted: every budget met with in-vocabulary ids,
+     rows 1 and 2 on every layer of every step and admission
+     (``launches_qwen2``, ``launches_nemo``, ``launches_gemma2``), the
+     same requests at chunk 1 bitwise equal, peak allocated < 72 GB;
+     tokens/s, mean and p95 TTFT, ms a decode step and the card's idle
+     share over one profiled chunk.  The kernels line lists the d = 256
+     instantiations (``*_d256``).
 
 Prints, last: a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and
@@ -330,8 +354,12 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """Print, stamped with the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s]", *a, flush=True)
 
 
 def cuda_ms(torch, fn, n_inputs, iters=30, warmup=3, host=None):
@@ -1136,7 +1164,10 @@ def int8_engine_phase(torch, np, cfg, api, engine_mod, QU, DA, FA,
 def profile_chunk(torch, np, cfg, params, engine_mod, spec):
     """torch.profiler over one decode chunk of 8 full slots (after a warm
     chunk): device kernel time, launches and the top kernels.  Where the
-    profiler records no device time this says so instead of a number."""
+    profiler records no device time this says so instead of a number.
+    Only the card's activity is recorded, as in `profile_busy`: the host's
+    op events (~2,000-4,000 launches a step) took the profiler 10-20 s a
+    chunk to gather."""
     from torch.profiler import ProfilerActivity, profile
     eng = engine_mod.ServeEngine(cfg, params, spec, device="cuda")
     rng = np.random.default_rng(1)
@@ -1149,8 +1180,7 @@ def profile_chunk(torch, np, cfg, params, engine_mod, spec):
     eng.step_chunk()                        # the same work, unprofiled
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.step_chunk()
         torch.cuda.synchronize()
@@ -3897,6 +3927,7 @@ def moe_training_phases(torch, np, F, registry, api, Dataset, CL, STEPS,
 # past its 1024-token window on 30 of its 32 layers
 SSM_ARCHS = ("mamba2-130m", "hymba-1.5b")
 SSM_EMPTY_LIMIT = 3e9           # allocated bytes when each serve starts
+SERVE_PEAK_LIMIT = 72e9         # each full-width serve (phases 18, 20)
 SSM_SPEC = dict(slots=16, max_len=1152, prompt_len=1088, chunk=8)
 SSM_NEW_TOKENS = 64
 SSM_REQUESTS = 16
@@ -4045,15 +4076,17 @@ def ssm_trace(np, vocab):
             for _ in range(SSM_REQUESTS)]
 
 
-def ssm_serve_phase(torch, np, cfg, api, engine_mod, DA, FA, dev="cuda"):
-    """Full-width ``cfg`` (bf16 weights from seed 0) in
-    ``ServeEngine(SliceSpec(slots=16, max_len=1152, prompt_len=1088,
-    chunk=8))`` on `ssm_trace`, 64 new tokens each, counted: every request
-    its budget of in-vocabulary ids, rows 1 and 2 launched on every layer
-    of every decode step and admission (the hybrid family) or never (the
-    SSM family).  Then the same requests at chunk 1: the same tokens, bit
-    for bit; finite prefill logits of the right shape; a profile of one
-    decode chunk (the card's idle share)."""
+def serve_counted_phase(torch, np, cfg, api, engine_mod, DA, FA, spec_d,
+                        prompts, new_tokens, dev="cuda"):
+    """Full-width ``cfg`` (bf16 weights from seed 0), on a card with less
+    than SSM_EMPTY_LIMIT allocated (checked), in
+    ``ServeEngine(SliceSpec(**spec_d))`` on ``prompts``, ``new_tokens``
+    each, counted: every request its budget of in-vocabulary ids, rows 1
+    and 2 launched on every layer of every decode step and admission (a
+    family with attention) or never (the SSM family), peak allocated under
+    SERVE_PEAK_LIMIT.  Then the same requests at chunk 1: the same tokens,
+    bit for bit; finite prefill logits of the right shape; a profile of one
+    decode chunk (the card's idle share).  Phases 18 and 20."""
     check(torch.cuda.memory_allocated() < SSM_EMPTY_LIMIT,
           f"{torch.cuda.memory_allocated()} bytes allocated before serving "
           f"{cfg.name}")
@@ -4062,10 +4095,10 @@ def ssm_serve_phase(torch, np, cfg, api, engine_mod, DA, FA, dev="cuda"):
     params = api.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
-    weight_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
-    spec = engine_mod.SliceSpec(**SSM_SPEC)
-    prompts = ssm_trace(np, cfg.vocab_size)
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    weight_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    spec = engine_mod.SliceSpec(**spec_d)
     warm = engine_mod.ServeEngine(cfg, params, spec, device=dev)
     warm.submit(prompts[0][:40], max_new_tokens=9)
     warm.run()
@@ -4073,13 +4106,15 @@ def ssm_serve_phase(torch, np, cfg, api, engine_mod, DA, FA, dev="cuda"):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eng, reqs, stats, launches = _engine_run(
-        torch, engine_mod, cfg, params, spec, prompts, SSM_NEW_TOKENS, DA,
-        FA, dev)
+        torch, engine_mod, cfg, params, spec, prompts, new_tokens, DA, FA,
+        dev)
     stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(stats["peak_mem_gb"] * 1e9 < SERVE_PEAK_LIMIT,
+          f"{cfg.name}: peak {stats['peak_mem_gb']:.2f} GB")
     streams = [list(r.out_tokens) for r in reqs]
     del eng, reqs
     waves = math.ceil(len(prompts) / spec.slots)
-    if cfg.family == "hybrid":
+    if cfg.attention is not None:
         check(launches["paged_decode_attention"]
               >= cfg.num_layers * stats["decode_steps"]
               and launches["flash_attention"] >= cfg.num_layers * waves,
@@ -4089,13 +4124,14 @@ def ssm_serve_phase(torch, np, cfg, api, engine_mod, DA, FA, dev="cuda"):
         check(not any(launches.values()),
               f"{cfg.name} has no attention but launched {launches}")
     stats.update(init_s=init_s, params=n_params, weight_gb=weight_gb,
-                 launches=launches,
+                 launches=launches, prompt_lens=[len(p) for p in prompts],
                  ms_decode_step=stats["p50_chunk_s"] / spec.chunk * 1e3)
-    one = engine_mod.SliceSpec(**{**SSM_SPEC, "chunk": 1})
+    one = engine_mod.SliceSpec(**{**spec_d, "chunk": 1})
     _, reqs1, stats1, _ = _engine_run(torch, engine_mod, cfg, params, one,
-                                      prompts, SSM_NEW_TOKENS, DA, FA, dev)
+                                      prompts, new_tokens, DA, FA, dev)
     check([list(r.out_tokens) for r in reqs1] == streams,
-          f"{cfg.name}: chunk 8 and chunk 1 served different tokens")
+          f"{cfg.name}: chunk {spec.chunk} and chunk 1 served different "
+          f"tokens")
     stats["chunk_invariant_bitwise"] = True
     stats["chunk1_tokens_per_s"] = stats1["tokens_per_s"]
     del reqs1
@@ -4106,6 +4142,7 @@ def ssm_serve_phase(torch, np, cfg, api, engine_mod, DA, FA, dev="cuda"):
     check(tuple(logits.shape) == (2, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"{cfg.name} prefill logits {tuple(logits.shape)} not finite")
+    del logits
     stats["profile"] = profile_chunk(torch, np, cfg, params, engine_mod, spec)
     del params
     return stats, launches
@@ -4126,9 +4163,10 @@ def ssm_phase(torch, np, F, registry, api, engine_mod, DA, FA, REF, TF,
     for arch in SSM_ARCHS:
         gc.collect()
         torch.cuda.empty_cache()
-        out[arch], launches[arch] = ssm_serve_phase(
-            torch, np, registry.get_config(arch), api, engine_mod, DA, FA,
-            dev)
+        cfg = registry.get_config(arch)
+        out[arch], launches[arch] = serve_counted_phase(
+            torch, np, cfg, api, engine_mod, DA, FA, SSM_SPEC,
+            ssm_trace(np, cfg.vocab_size), SSM_NEW_TOKENS, dev)
     out["phase_s"] = time.perf_counter() - t_phase
     return out, launches["hymba-1.5b"]
 
@@ -4138,6 +4176,9 @@ def ssm_phase(torch, np, F, registry, api, engine_mod, DA, FA, REF, TF,
 # backward at full width, where the reference's is NaN
 SSM_SMALL_SHAPE = ("ssm_check", "train", 32, 4)
 SSM_TRAIN_PEAK_LIMIT = 72e9
+# hymba's step is ~5.8 s: 2 warm and 5 timed steps keep phase 19 ~40 s
+# shorter than phase 12's 3 and 10 (its losses fall within 3 steps)
+SSM_WARM, SSM_TIMED = 2, 5
 SSD_GRAD_T = 512                # two chunks of 256
 # the trained models served: 4 prompts of 64 tokens, 32 new tokens each
 SSM_TRAINED_SPEC = dict(slots=4, max_len=96, prompt_len=64, chunk=8)
@@ -4286,7 +4327,7 @@ def ssm_train_phase(torch, np, cfg, CL, RunConfig, ShapeConfig,
     """Full-width ``cfg`` (f32 from seed 0) on phase 12's cell (train_2k,
     remat, xent chunks of 256, Adam at lr 3e-4, warmup 5): first
     ``STEPS.value_and_grad`` of the batch's first 2048-token row, every
-    leaf finite; then ``Slice.train`` for 3 warm and 10 timed steps
+    leaf finite; then ``Slice.train`` for 2 warm and 5 timed steps
     (finite losses that fall from the first, params that move, peak
     allocated < 72 GB), one more step profiled against the median timed
     step's wall time; Adam alone timed once more on the trained state; then the trained params cast to bf16 and served (4 prompts of
@@ -4340,7 +4381,7 @@ def ssm_train_phase(torch, np, cfg, CL, RunConfig, ShapeConfig,
     if cfg.family == "hybrid":
         probes.append(state.params["layers"]["attn"]["wq"][-1, :64])
     before = [t.clone() for t in probes]
-    steps = DENSE_WARM + DENSE_TIMED
+    steps = SSM_WARM + SSM_TIMED
     gc.collect()
     torch.cuda.empty_cache()
     step_s = []
@@ -4364,7 +4405,7 @@ def ssm_train_phase(torch, np, cfg, CL, RunConfig, ShapeConfig,
     check(peak < SSM_TRAIN_PEAK_LIMIT,
           f"{cfg.name} training: peak allocated {peak / 1e9:.2f} GB over "
           f"{SSM_TRAIN_PEAK_LIMIT / 1e9:.0f} GB")
-    timed = step_s[DENSE_WARM:]
+    timed = step_s[SSM_WARM:]
     med = sorted(timed)[len(timed) // 2]
     t0 = time.perf_counter()
     prof = profile_busy(torch, lambda: sess.run(sess.state.step + 1,
@@ -4383,7 +4424,7 @@ def ssm_train_phase(torch, np, cfg, CL, RunConfig, ShapeConfig,
     del grads
     tokens = run.shape.global_batch * run.shape.seq_len
     out.update(
-        losses=losses, steps_warm=DENSE_WARM, steps_timed=DENSE_TIMED,
+        losses=losses, steps_warm=SSM_WARM, steps_timed=SSM_TIMED,
         ms_per_step=[t * 1e3 for t in step_s], median_ms_per_step=med * 1e3,
         spread_ms=[min(timed) * 1e3, max(timed) * 1e3],
         tokens_per_s=tokens * len(timed) / sum(timed),
@@ -4451,6 +4492,332 @@ def ssm_training_phases(torch, np, registry, api, Dataset, CL, STEPS, OPT,
         torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     return out, launches["hymba-1.5b"]
+
+# Phase 20: the dense variants qwen2-7b, mistral-nemo-12b and gemma2-9b
+# served at full width, with rows 1, 1q, 2, 3 and 3q at gemma2's head_dim
+# of 256 and at qwen2's GQA 7
+DENSE_VARIANTS = ("qwen2-7b", "mistral-nemo-12b", "gemma2-9b")
+# gemma2-9b's attention: 16 query heads over 8 KV heads of 256, softcap 50,
+# scale 256^-0.5, a window of 4096 on every other layer
+GEMMA2_HEADS = (16, 8, 256)
+GEMMA2_WINDOW = 4096
+GEMMA2_SOFTCAP = 50.0
+GEMMA2_SPEC = dict(slots=8, max_len=4608, prompt_len=4480, chunk=8)
+GEMMA2_NEW_TOKENS = 64
+GEMMA2_PROMPT_LENS = (4000, 4480)       # drawn in this range, inclusive
+GEMMA2_LENS = [0, 1, 4096, 4097, 4608, 129, 2000, 4480]
+GEMMA2_BS = 16                  # rows 3 and 3q: pool blocks of 16 rows
+QWEN2_HEADS = (28, 4, 128)      # G = 7: 7 of a head group's 8 lanes
+DENSE_REFERENCE_STEPS = 12
+
+
+def _sdpa_decode(F, q, k, v, mask, scale):
+    """SDPA over a per-slot cache (B, S, KH, d) for q (B, H, d), GQA and an
+    explicit mask; no softcap (SDPA has none)."""
+    return F.scaled_dot_product_attention(
+        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        enable_gqa=True, scale=scale)
+
+
+def gemma2_kernel_phase(torch, np, F, DA, FA, REF, QU, ops, dev="cuda"):
+    """Rows 1, 1q, 3 and 3q at gemma2-9b's decode shape (B = 8, S = 4608,
+    lengths 0, 1, 4096, 4097, 4608 among 8; H = 16 over KH = 8, d = 256,
+    softcap 50, scale 256^-0.5), with the window of 4096 and global: rows
+    3 and 3q over a pool of blocks of 16 rows through permuted tables (two
+    slots share 8 blocks), rows 1 and 1q on the gathered view, 1q and 3q
+    on ``quantize_kv`` of the same K/V; rows 1q, 3 and 3q go once through
+    ``ops`` (counted).  Row 2 at gemma2's prefill: B = 1 and 8, T = S =
+    4480, window 4096, and B = 8, T = S = 512, global.  Rows 1 and 2 also
+    at qwen2-7b's G = 7 (H = 28 over KH = 4, d = 128: decode B = 8, S =
+    1024 with the decode phase's lengths; prefill B = 8, T = S = 128).
+    Each is held against its plain version (row 2's at B = 8, T = 4480
+    one batch row at a time: the same function, in 1.3 GB of f32 scores a
+    row), rows 3 and 3q bitwise rows 1 and 1q on the view, and each is
+    timed beside its plain version and its bound; rows 1 and 2 in turns
+    with SDPA (``enable_gqa``; the window as an explicit mask, prefill
+    ``is_causal`` without one; WITHOUT the softcap, which SDPA lacks: a
+    yardstick of the same shape only)."""
+    gen = torch.Generator(device=dev).manual_seed(30)
+    bf = torch.bfloat16
+    H, KH, d = GEMMA2_HEADS
+    scale, cap, W = d ** -0.5, GEMMA2_SOFTCAP, GEMMA2_WINDOW
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    out = {"decode": {}, "prefill": {}}
+    B, S, bs = len(GEMMA2_LENS), GEMMA2_SPEC["max_len"], GEMMA2_BS
+    nb = S // bs
+    NB = B * nb + 16                    # 16 blocks no table names
+    lens = torch.tensor(GEMMA2_LENS, dtype=torch.int32, device=dev)
+
+    def inputs(i):
+        q = randn(B, H, d)
+        k, v = randn(NB, bs, KH, d), randn(NB, bs, KH, d)
+        t = np.random.default_rng(30 + i).permutation(NB)[:B * nb]
+        t = t.reshape(B, nb).astype(np.int32)
+        t[3, :8] = t[2, :8]
+        t = torch.from_numpy(t).to(dev)
+        (kq, ks), (vq, vs) = QU.quantize_kv(k), QU.quantize_kv(v)
+        return dict(q=q, k=k, v=v, t=t, kq=kq, ks=ks, vq=vq, vs=vs,
+                    view=[REF.pool_rows(x, t) for x in (k, v)],
+                    view_q=[REF.pool_rows(x, t) for x in (kq, ks, vq, vs)])
+
+    # 2 sets (~1 GB each): the valid bf16 rows of one are ~150 MB, 3x L2
+    sets = [inputs(i) for i in range(2)]
+    a = sets[0]
+    kw0 = dict(window=W, softcap=cap, scale=scale)
+    DA.launches_q = DA.launches_bt = DA.launches_bt_q = 0
+    ops.paged_decode_attention(a["q"], a["view_q"][0], a["view_q"][2], lens,
+                               k_scale=a["view_q"][1],
+                               v_scale=a["view_q"][3], **kw0)
+    ops.paged_decode_attention_bt(a["q"], a["k"], a["v"], lens, a["t"], **kw0)
+    ops.paged_decode_attention_bt(a["q"], a["kq"], a["vq"], lens, a["t"],
+                                  k_scale=a["ks"], v_scale=a["vs"], **kw0)
+    torch.cuda.synchronize()
+    counted = {"1q": DA.launches_q, "3": DA.launches_bt,
+               "3q": DA.launches_bt_q}
+    check(counted == {"1q": 1, "3": 1, "3q": 1},
+          f"d = 256 decode through ops: launches {counted}")
+
+    kern = {
+        "1": lambda x, kw: DA.paged_decode_attention(
+            x["q"], *x["view"], lens, **kw),
+        "1q": lambda x, kw: DA.paged_decode_attention_q8(
+            x["q"], *x["view_q"], lens, **kw),
+        "3": lambda x, kw: DA.paged_decode_attention_bt(
+            x["q"], x["k"], x["v"], lens, x["t"], **kw),
+        "3q": lambda x, kw: DA.paged_decode_attention_bt_q8(
+            x["q"], x["kq"], x["ks"], x["vq"], x["vs"], lens, x["t"], **kw)}
+    plain = {
+        "1": lambda x, kw: REF.paged_decode_attention_ref(
+            x["q"], *x["view"], lens, **kw),
+        "1q": lambda x, kw: REF.paged_decode_attention_ref(
+            x["q"], x["view_q"][0], x["view_q"][2], lens,
+            k_scale=x["view_q"][1], v_scale=x["view_q"][3], **kw),
+        "3": lambda x, kw: REF.paged_decode_attention_bt_ref(
+            x["q"], x["k"], x["v"], lens, x["t"], **kw),
+        "3q": lambda x, kw: REF.paged_decode_attention_bt_ref(
+            x["q"], x["kq"], x["vq"], lens, x["t"], k_scale=x["ks"],
+            v_scale=x["vs"], **kw)}
+    kpos = torch.arange(S, device=dev)[None, :]
+    ln = lens.long()[:, None]
+    io = 2 * B * H * d * 2 + B * 4          # q in, out, seq_lens
+    for window in (W, None):
+        kw = dict(window=window, softcap=cap, scale=scale)
+        name = "window" if window else "global"
+        got = {n: f(a, kw) for n, f in kern.items()}
+        err = {n: max_err(torch, got[n], plain[n](a, kw),
+                          f"row {n} at gemma2's B{B} H{H} KH{KH} S{S} d{d} "
+                          f"{name}") for n in kern}
+        check(torch.equal(got["3"], got["1"]) and
+              torch.equal(got["3q"], got["1q"]),
+              f"d = 256 {name}: the pooled launches are not bitwise the "
+              f"per-slot ones on the gathered view")
+        check(not got["1"][lens == 0].any(), "a slot of length 0 not zeros")
+        see = kpos < ln
+        if window:
+            see &= (ln - 1) - kpos < window
+        mask = see[:, None, None, :]
+        fns = {n: (lambda i, f=f, kw=kw: f(sets[i], kw))
+               for n, f in kern.items()}
+        fns["sdpa"] = lambda i: _sdpa_decode(F, sets[i]["q"],
+                                             *sets[i]["view"], mask, scale)
+        ms, turns = in_turns(torch, fns, 2, ("1", "1q", "3", "3q", "sdpa",
+                                             "sdpa", "3q", "3", "1q", "1"))
+        rows = int(see.sum())
+        flops, deq = 4 * rows * H * d, 2 * rows * KH * d
+        nbytes = {"1": io + 2 * rows * KH * d * 2,
+                  "1q": io + 2 * rows * KH * (d + 4)}
+        nbytes["3"] = nbytes["1"] + B * nb * 4
+        nbytes["3q"] = nbytes["1q"] + B * nb * 4
+        for n in kern:
+            bound_ms, bound_by = bound(nbytes[n],
+                                       flops + (deq if "q" in n else 0))
+            out["decode"][f"{n}_{name}"] = dict(
+                shape=[B, H, KH, S, d], window=window, rows=rows,
+                max_abs_err=err[n], ms=ms[n],
+                plain_ms=cuda_ms(torch, lambda i, n=n, kw=kw:
+                                 plain[n](sets[i], kw), 2, iters=10),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, sdpa_no_softcap_ms=ms["sdpa"],
+                ms_turns=turns[n],
+                launches=counted.get(n))
+    del sets, a, got
+
+    def flash_case(key, B, H, KH, T, d, window, softcap, scale, n_sets):
+        sets = [(randn(B, H, T, d), randn(B, KH, T, d), randn(B, KH, T, d))
+                for _ in range(n_sets)]
+        kw = dict(window=window, softcap=softcap, scale=scale)
+
+        def plain(i):                   # one batch row at a time
+            q, k, v = sets[i]
+            return torch.cat([REF.flash_attention_ref(
+                q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw) for b in range(B)])
+
+        err = max_err(torch, FA.flash_attention(*sets[0], **kw), plain(0),
+                      f"prefill {key}: B{B} H{H} KH{KH} T{T} d{d} {kw}")
+        t = torch.arange(T, device=dev)
+        allowed = t[None, :] <= t[:, None]
+        sdpa_kw = dict(is_causal=True)
+        if window is not None:
+            allowed &= t[:, None] - t[None, :] < window
+            sdpa_kw = dict(attn_mask=allowed)
+        mean, turns = in_turns(torch, {
+            "kernel": lambda i: FA.flash_attention(*sets[i], **kw),
+            "library": lambda i: F.scaled_dot_product_attention(
+                *sets[i], enable_gqa=True, scale=scale, **sdpa_kw)}, n_sets)
+        pairs = int(allowed.sum())
+        bound_ms, bound_by = bound(
+            (2 * B * H * T * d + 2 * B * KH * T * d) * 2,
+            4 * B * H * d * pairs)
+        # SDPA computes the same function only where there is no softcap
+        out["prefill"][key] = dict(
+            shape=[B, H, KH, T, d], window=window, pairs=pairs,
+            max_abs_err=err, ms=mean["kernel"],
+            plain_ms=cuda_ms(torch, plain, n_sets, iters=3, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None if softcap else mean["library"],
+            sdpa_no_softcap_ms=mean["library"], ms_turns=turns)
+
+    T = GEMMA2_SPEC["prompt_len"]
+    flash_case("gemma2_B1", 1, H, KH, T, d, W, cap, scale, 3)
+    flash_case("gemma2_B8", 8, H, KH, T, d, W, cap, scale, 2)
+    flash_case("gemma2_B8_T512_global", 8, H, KH, 512, d, None, cap, scale,
+               3)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # qwen2-7b's GQA 7 at d = 128: row 1 at the decode phase's shape, row 2
+    # at the serve phase's admission wave
+    H, KH, d = QWEN2_HEADS
+    B, S = 8, 1024
+    dl = [0, 1, 100, 257, 512, 700, 1000, 1024]
+    dlens = torch.tensor(dl, dtype=torch.int32, device=dev)
+    sets = [(randn(B, H, d), randn(B, S, KH, d), randn(B, S, KH, d))
+            for _ in range(3)]
+    err = max_err(torch, DA.paged_decode_attention(*sets[0][:3], dlens),
+                  REF.paged_decode_attention_ref(*sets[0][:3], dlens),
+                  f"decode at qwen2's B{B} H{H} KH{KH} S{S}")
+    mask = (torch.arange(S, device=dev)[None, :]
+            < dlens.long()[:, None])[:, None, None, :]
+    mean, turns = in_turns(torch, {
+        "kernel": lambda i: DA.paged_decode_attention(*sets[i], dlens),
+        "library": lambda i: _sdpa_decode(F, *sets[i], mask, None)}, 3)
+    rows = sum(dl)
+    bound_ms, bound_by = bound(2 * B * H * d * 2 + 2 * rows * KH * d * 2
+                               + B * 4, 4 * rows * H * d)
+    out["decode"]["qwen2_g7"] = dict(
+        shape=[B, H, KH, S, d], rows=rows, max_abs_err=err,
+        ms=mean["kernel"],
+        plain_ms=cuda_ms(torch, lambda i: REF.paged_decode_attention_ref(
+            *sets[i], dlens), 3),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=mean["library"],
+        ms_turns=turns)
+    del sets
+    flash_case("qwen2_g7", 8, H, KH, SERVE_SPEC["prompt_len"], d, None,
+               None, None, 8)
+    return out
+
+
+def dense_reference_phase(torch, registry, api, TF, dev="cuda"):
+    """Reduced qwen2-7b, mistral-nemo-12b and gemma2-9b, seeded weights, on
+    the CPU (plain attention, CPU matmuls) and on the card (rows 1 and 2,
+    cuBLAS): a prefill of 24 tokens (past gemma2's reduced window of 16),
+    then 12 greedy decode steps, the card fed the CPU's picks.  Logits
+    within LOGIT_REL_TOL of the CPU's largest at every step; the card's
+    pick equals the CPU's at every step, or the CPU's top-2 margin there is
+    under that bar (a near tie, counted).  Returns each arch's worst share
+    of the tolerance and its near ties."""
+    out = {}
+    for arch in DENSE_VARIANTS:
+        cfg = registry.get_reduced(arch)
+        p_cpu = api.init_params(cfg, seed=0, device="cpu")
+        p_gpu = _to(p_cpu, dev)
+        B, T, steps = 3, 24, DENSE_REFERENCE_STEPS
+        toks = torch.randint(0, cfg.vocab_size, (B, T),
+                             generator=torch.Generator().manual_seed(0))
+        runs, feed = {}, None
+        for name, p, d in (("cpu", p_cpu, "cpu"), ("gpu", p_gpu, dev)):
+            logits, cache = api.prefill(cfg, p, {"tokens": toks.to(d)},
+                                        max_len=T + steps)
+            lens = torch.full((B,), T, dtype=torch.int32, device=d)
+            active = torch.ones((B,), dtype=torch.bool, device=d)
+            got = [logits.float().cpu()]
+            picks = [logits.argmax(-1).cpu()]
+            for s in range(steps):
+                tk = (picks[-1] if feed is None else feed[s]).to(d)
+                logits, cache, lens = TF.decode_step_paged(cfg, p, cache, tk,
+                                                           lens, active)
+                got.append(logits.float().cpu())
+                picks.append(logits.argmax(-1).cpu())
+            runs[name] = (got, picks)
+            feed = feed or picks
+        worst, ties = 0.0, 0
+        for s, (c, g) in enumerate(zip(*(runs[n][0] for n in ("cpu",
+                                                               "gpu")))):
+            check(bool(torch.isfinite(g).all()), f"{arch} step {s}: not "
+                                                 f"finite")
+            tol = LOGIT_REL_TOL * c.abs().max().item()
+            err = (c - g).abs().max().item()
+            check(err <= tol, f"{arch} step {s}: card vs CPU logits differ "
+                              f"by {err:.4f} > {tol:.4f}")
+            worst = max(worst, err / tol)
+            for b in torch.nonzero(runs["cpu"][1][s] != runs["gpu"][1][s]):
+                top2 = c[int(b)].topk(2).values
+                check(float(top2[0] - top2[1]) < tol,
+                      f"{arch} step {s} row {int(b)}: the card picks "
+                      f"another token off a near tie")
+                ties += 1
+        out[arch] = dict(worst_share_of_tol=worst, steps=steps + 1,
+                         near_ties=ties)
+    return out
+
+
+def gemma2_trace(np, vocab):
+    """Phase 20's gemma2 prompts: 8 of 4000-4480 tokens (past the window
+    of 4096 but for two), ids below ``vocab``, from seed 0."""
+    rng = np.random.default_rng(0)
+    lo, hi = GEMMA2_PROMPT_LENS
+    return [rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1)))
+            for _ in range(GEMMA2_SPEC["slots"])]
+
+
+def dense_variants_phase(torch, np, F, registry, api, engine_mod, DA, FA,
+                         REF, QU, ops, TF, dev="cuda"):
+    """Phase 20: the dense variants.  Rows 1, 1q, 2, 3 and 3q at gemma2's
+    head_dim of 256 and rows 1 and 2 at qwen2's GQA 7, the reduced archs
+    card vs CPU, then full-width qwen2-7b and mistral-nemo-12b on the
+    serve phase's engine and trace (16 requests, 128 new tokens each) and
+    gemma2-9b in ``SliceSpec(slots=8, max_len=4608, prompt_len=4480,
+    chunk=8)`` on `gemma2_trace`, 64 new tokens each (every local layer
+    masks at prefill and at decode), each through `serve_counted_phase`
+    on an empty card.  Returns (results, {arch: launches})."""
+    t_phase = time.perf_counter()
+    out = {"kernels": gemma2_kernel_phase(torch, np, F, DA, FA, REF, QU, ops,
+                                          dev)}
+    out["kernels_s"] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reference"] = dense_reference_phase(torch, registry, api, TF, dev)
+    launches = {}
+    for arch in DENSE_VARIANTS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg = registry.get_config(arch)
+        if arch == "gemma2-9b":     # past its window, at prefill and decode
+            spec, prompts = GEMMA2_SPEC, gemma2_trace(np, cfg.vocab_size)
+            new_tokens = GEMMA2_NEW_TOKENS
+        else:                       # the olmo-1b serve phase's cell
+            spec, prompts = SERVE_SPEC, serve_trace(np, cfg.vocab_size)[1]
+            new_tokens = SERVE_NEW_TOKENS
+        out[arch], launches[arch] = serve_counted_phase(
+            torch, np, cfg, api, engine_mod, DA, FA, spec, prompts,
+            new_tokens, dev)
+        out[arch]["arch_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches
 
 
 def _leaves(tree):
@@ -4565,6 +4932,11 @@ def main(argv=None):
         RunConfig, ShapeConfig, ParallelConfig, OptimizerConfig, engine_mod,
         DA, FA)
     log("ssm and hybrid training:", json.dumps(ssm_train))
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_var, dense_var_launches = dense_variants_phase(
+        torch, np, F, registry, api, engine_mod, DA, FA, REF, QU, ops, TF)
+    log("dense variants:", json.dumps(dense_var))
     gc.collect()
     torch.cuda.empty_cache()
     stats, launches = serve_phase(torch, np, registry.get_config("olmo-1b"),
@@ -4691,6 +5063,47 @@ def main(argv=None):
         "paged_decode_attention"]
     prefill["launches_hymba_trained"] = hymba_train_launches[
         "flash_attention"]
+    # full-width qwen2-7b (GQA 7) and mistral-nemo-12b served (d = 128)
+    for arch, key in (("qwen2-7b", "launches_qwen2"),
+                      ("mistral-nemo-12b", "launches_nemo")):
+        decode[key] = dense_var_launches[arch]["paged_decode_attention"]
+        prefill[key] = dense_var_launches[arch]["flash_attention"]
+    # the d = 256 instantiations: rows 1 and 2 counted in full-width
+    # gemma2-9b's serving run, rows 1q, 3 and 3q in phase 20's ops calls;
+    # times at gemma2's local layers (window 4096, softcap 50), the global
+    # layers' beside them; SDPA has no softcap (library_ms null), so its
+    # time on the same shapes without one is a yardstick only
+    g2, g2_launches = (dense_var["kernels"],
+                       dense_var_launches["gemma2-9b"])
+    d256 = []
+    for row, name, line in (("1", "paged_decode_attention", 112),
+                            ("1q", "paged_decode_attention_q8", 100),
+                            ("3", "paged_decode_attention_bt", 217),
+                            ("3q", "paged_decode_attention_bt_q8", 210)):
+        k, kg = g2["decode"][f"{row}_window"], g2["decode"][f"{row}_global"]
+        d256.append(dict(
+            name=f"{name}_d256", route="cuda",
+            source="src/repro_torch/kernels/csrc/decode_attention.cu",
+            replaces=f"src/repro/kernels/decode_attention.py:{line}",
+            launches=(g2_launches["paged_decode_attention"] if row == "1"
+                      else k["launches"]),
+            max_abs_err=max(k["max_abs_err"], kg["max_abs_err"]),
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=None, ms_global=kg["ms"],
+            sdpa_no_softcap_ms=k["sdpa_no_softcap_ms"]))
+    d256[0]["launches_gemma2"] = d256[0]["launches"]
+    k = g2["prefill"]["gemma2_B8"]
+    d256.append(dict(
+        name="flash_attention_d256", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:86",
+        launches=g2_launches["flash_attention"],
+        launches_gemma2=g2_launches["flash_attention"],
+        max_abs_err=max(c["max_abs_err"] for n, c in g2["prefill"].items()
+                        if n.startswith("gemma2")),
+        ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+        bound_by=k["bound_by"], library_ms=None,
+        sdpa_no_softcap_ms=k["sdpa_no_softcap_ms"]))
     fused, gather = (dlrm_kern[DLRM_BATCH][n]
                      for n in ("fused_lookup", "embedding_gather"))
     fused["launches"] = dlrm_launches["fused_lookup"]
@@ -4710,13 +5123,15 @@ def main(argv=None):
             "launches_int8_engine", "launches_trained_serve",
             "launches_fleet", "launches_mixed", "launches_moe",
             "launches_moe_trained", "launches_hymba",
-            "launches_hymba_trained")
+            "launches_hymba_trained", "launches_qwen2", "launches_nemo",
+            "launches_gemma2")
+    extra = ("ms_global", "sdpa_no_softcap_ms")
     kernels = {"kernels": [{k: kern[k] for k in keys}
-                           | {k: kern[k] for k in more if k in kern}
+                           | {k: kern[k] for k in more + extra if k in kern}
                            for kern in (decode, pooled["q8"], pooled["bt"],
                                         pooled["bt_q8"], prefill, fused,
                                         gather, scat, lookup, dedup,
-                                        qlookup)]}
+                                        qlookup, *d256)]}
     check(all(k[n] > 0 for k in kernels["kernels"] for n in
               ("launches",) + more if n in k),
           f"a kernel was not launched on its path: {kernels}")
@@ -4740,7 +5155,7 @@ def main(argv=None):
                  dense_training=dense, fault_drill=drill,
                  fleet=fleet, mixed_tenancy=mixed, moe=moe,
                  moe_training=moe_train, ssm=ssm, ssm_training=ssm_train,
-                 **kernels), indent=2))
+                 dense_variants=dense_var, **kernels), indent=2))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

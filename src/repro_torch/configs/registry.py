@@ -10,6 +10,9 @@ from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",

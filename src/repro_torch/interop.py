@@ -7,8 +7,12 @@ frameworks on the same weights:
     final_norm       {} for nonparam_ln
     layers/ln1, ln2  {} for nonparam_ln (stacked (L, d) leaves otherwise)
     layers/attn/wq   (L, d, H, hd)     wk, wv (L, d, KH, hd)
-    layers/attn/wo   (L, H*hd, d)
+    layers/attn/wo   (L, H*hd, d)      (H*hd != d: mistral-nemo, gemma2)
+    layers/attn/bq   (L, H, hd)        bk, bv (L, KH, hd) (qkv_bias: qwen2)
     layers/mlp/wg,wu (L, d, f)         wo (L, f, d)
+    layers/post_ln1, post_ln2          as ln1 (post_norm: gemma2)
+    head             (d, V)            absent with tied embeddings (olmo,
+                                       gemma2's 256000-row ``embed``)
 
 a MoE model's (``models/moe.py``), over its Ls = L - dense_layers stacked
 layers, in place of ``mlp``:

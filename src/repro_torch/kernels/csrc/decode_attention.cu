@@ -53,7 +53,13 @@
 //     counters) once and caches it;
 //   * G query heads share each K/V row a block loads: up to GB = 8 heads a
 //     block (their q slices and accumulators in registers), more heads in
-//     more head groups.
+//     more head groups;
+//   * d = 256 (gemma2-9b) is the same body: a row fills the warp (32 lanes
+//     of 8, one row a warp load), so the score's shuffle tree has five
+//     levels and the row groups have nothing to merge; the warps' static
+//     accumulators (wacc) grow to NW * GB * 256 floats = 32 KB, under the
+//     48 KB static limit, and a partial to GB * (256 + 2) floats.  The
+//     d <= 128 instantiations are untouched, so their bits are too.
 // Left for later: TMA/cp.async staging of the rows of a pooled block, and
 // a chunk size chosen per shape (it is fixed so the bits do not move).
 #include <cuda_bf16.h>
@@ -137,7 +143,7 @@ __global__ void __launch_bounds__(NT) decode_attention_kernel(
     float* __restrict__ part, int* __restrict__ count, int H, int KH,
     int window, float softcap, float scale) {
   constexpr bool Q8 = std::is_same<T, int8_t>::value;
-  static_assert(D % 16 == 0 && D <= 128, "head_dim");
+  static_assert(D % 16 == 0 && D <= 256, "head_dim");
   constexpr int LPR = D / 8;             // lanes a row
   constexpr int RPW = 32 / LPR;          // rows a warp load covers
   constexpr int U = GB == 1 ? 8 : 2;     // warp loads a lane keeps in flight
@@ -397,6 +403,10 @@ int dispatch(const void* q, const void* k, const void* k_scale,
       break;
     case 128:
       launch_g<128, T, POOLED>(q, k, k_scale, v, v_scale, sl, rows, out, part,
+                               count, B, H, KH, window, softcap, scale, st);
+      break;
+    case 256:
+      launch_g<256, T, POOLED>(q, k, k_scale, v, v_scale, sl, rows, out, part,
                                count, B, H, KH, window, softcap, scale, st);
       break;
     default:

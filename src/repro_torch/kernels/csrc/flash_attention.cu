@@ -46,6 +46,14 @@
 //     writes zeros;
 //   * the output goes back through the warp's own Q rows in shared memory
 //     and leaves as 16-byte stores.
+//   * d = 256 (gemma2-9b) keeps the body with two changes (`Smem`): each
+//     warp reads its Q fragment from shared memory at each k-step instead
+//     of holding 64 registers of it, and a K/V tile holds 32 keys, not 64.
+//     Its 16 x 256 f32 output accumulator is 128 registers a lane; ptxas
+//     (nvcc 12.8, -Xptxas -v) reports 238 registers and 0 bytes of spill
+//     stores and loads for it (215 at d = 128), with 99 KB of dynamic
+//     shared memory: two blocks an SM.  The d <= 128 instantiations
+//     compile the code they did before, so their bits do not move.
 // Left for later: wgmma with TMA loads and a producer warp.  Long prompts
 // are where it shows: at T = S = 512 the kernel does its causal products
 // at about a third of SDPA's rate (PERF.md), as each warp reads the whole
@@ -63,18 +71,25 @@ using namespace async_copy;
 constexpr int NW = 4;             // warps per block
 constexpr int NT = NW * 32;       // threads per block
 constexpr int BQ = 16 * NW;       // query rows per block (16 per warp)
-constexpr int BK = 64;            // key rows per K/V tile
 constexpr int STAGES = 2;         // K/V tiles in flight
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Dynamic shared memory of the D instantiation, in bf16 elements: the Q
-// tile, then STAGES K tiles, then STAGES V tiles, each row padded by 8.
+// Tiling of the D instantiation.  Up to d = 128 a K/V tile holds 64 keys
+// and each warp keeps its Q fragments in registers.  At d = 256 the 16 x
+// 256 f32 output accumulator alone takes 128 registers a lane, so a warp
+// reads its Q fragments from shared memory at each k-step (not 64 more
+// registers) and a tile holds 32 keys (a 16-register score tile): no
+// spill, and 99 KB of shared memory, so two blocks share an SM.
 template <int D>
 struct Smem {
+  static constexpr int BK = D > 128 ? 32 : 64;   // key rows per K/V tile
+  static constexpr bool Q_IN_REGS = D <= 128;
   static constexpr int LD = D + 8;
   static constexpr int Q = BQ * LD;
   static constexpr int KV = BK * LD;
+  // dynamic shared memory, in bf16 elements: the Q tile, then STAGES K
+  // tiles, then STAGES V tiles, each row padded by 8
   static constexpr int BYTES = (Q + 2 * STAGES * KV) * 2;
 };
 
@@ -120,8 +135,9 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
     int H, int KH, int T, int S, int causal, int window, float softcap,
     float scale) {
-  static_assert(D % 16 == 0 && D <= 128, "head_dim");
+  static_assert(D % 16 == 0 && D <= 256, "head_dim");
   using L = Smem<D>;
+  constexpr int BK = L::BK;
   constexpr int LD = L::LD;
   constexpr int KS = D / 16;      // k-steps of Q.K^T
   constexpr int NO = D / 8;       // n-tiles of the output
@@ -175,7 +191,7 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
 
   const int r0 = warp * 16;               // the warp's first row in the tile
   const int qpos[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  uint32_t qf[KS][4];
+  uint32_t qf[L::Q_IN_REGS ? KS : 1][4];
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -192,11 +208,13 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
+    if constexpr (L::Q_IN_REGS) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldmatrix_x4(qf[kk], sq + (r0 + (lane & 15)) * LD + kk * 16 +
-                                (lane >> 4) * 8);
+        for (int kk = 0; kk < KS; ++kk)
+          ldmatrix_x4(qf[kk], sq + (r0 + (lane & 15)) * LD + kk * 16 +
+                                  (lane >> 4) * 8);
+      }
     }
     const __nv_bfloat16* ks = sk + (it % STAGES) * L::KV;
     const __nv_bfloat16* vs = sv + (it % STAGES) * L::KV;
@@ -213,13 +231,18 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
       for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qs[4];
+        if constexpr (!L::Q_IN_REGS)  // d = 256: from the warp's rows of sq
+          ldmatrix_x4(qs, sq + (r0 + (lane & 15)) * LD + kk * 16 +
+                              (lane >> 4) * 8);
+        const uint32_t(&qa)[4] = L::Q_IN_REGS ? qf[kk] : qs;
 #pragma unroll
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t kf[4];
           ldmatrix_x4(kf, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) *
                                    LD + kk * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+          mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+          mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
         }
       }
 
@@ -366,6 +389,7 @@ extern "C" int repro_flash_attention_bf16(
     case 16: return launch<16>(q, k, v, out, B, H, KH, T, S, causal, window, softcap, scale, st);
     case 64: return launch<64>(q, k, v, out, B, H, KH, T, S, causal, window, softcap, scale, st);
     case 128: return launch<128>(q, k, v, out, B, H, KH, T, S, causal, window, softcap, scale, st);
+    case 256: return launch<256>(q, k, v, out, B, H, KH, T, S, causal, window, softcap, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

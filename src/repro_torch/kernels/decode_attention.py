@@ -32,8 +32,9 @@ per-slot launch does, so it computes the same bits as the per-slot launch
 on the gathered view (bf16 and int8 alike).  See the source for the
 design and what is left.
 
-Each wrapper launches the kernel on CUDA tensors and raises on anything it
-does not take; ``ops`` sends CPU tensors to the plain versions in ``ref``.
+Every entry point takes head_dim 16, 64, 128 or 256 (gemma2-9b) and
+(H / KH) * head_dim up to 1024.  Each wrapper launches the kernel on CUDA
+tensors and raises on anything it does not take; ``ops`` sends CPU tensors to the plain versions in ``ref``.
 ``launches``, ``launches_q``, ``launches_bt`` and ``launches_bt_q`` count
 the successful launches of each.
 """
@@ -46,7 +47,7 @@ import torch
 
 from repro_torch.kernels import build
 
-SUPPORTED_HEAD_DIMS = (16, 64, 128)
+SUPPORTED_HEAD_DIMS = (16, 64, 128, 256)
 MAX_GD = 1024          # largest (H / KH) * head_dim the kernel takes
 
 launches = 0           # per-slot bf16 launches in this process

@@ -5,7 +5,8 @@
 serves full-width olmo-1b on the card with random weights from ``--seed``
 (``--arch qwen3-moe-30b-a3b`` or ``kimi-k2-1t-a32b``: a MoE model;
 full-width kimi-k2 does not fit one card; ``mamba2-130m``: the SSM family;
-``hymba-1.5b``: the hybrid one);
+``hymba-1.5b``: the hybrid one; ``qwen2-7b``, ``mistral-nemo-12b``,
+``gemma2-9b``: the dense variants);
 ``--reduced`` picks the smoke-test config and ``--device cpu`` the CPU
 (plain attention instead of the CUDA kernels).  ``--chunk`` sets the decode
 tokens advanced per host sync; ``--chunk 1`` gives identical greedy output.

@@ -95,6 +95,7 @@ def _close(got, want):
 
 HYMBA_LENS = [0, 1, 1024, 1025, 1152, 5, 100, 500, 1023, 1026, 1100, 1151,
               64, 700, 1088, 1090]
+GEMMA2_LENS = [0, 1, 4096, 4097, 4608, 129, 2000, 4480]
 ROW1_PINNED_CASES = [                       # (B, H, KH, S, d, lens), options
     ((2, 4, 4, 40, 16, [0, 40]), dict()),
     ((3, 8, 2, 64, 16, [0, 1, 64]), dict(window=8)),
@@ -109,7 +110,15 @@ DECODE_CASES = ROW1_PINNED_CASES + [
     # 5), d = 64, its window of 1024 and a global layer; lengths around
     # the window edge
 ] + [((16, 25, 5, 1152, 64, HYMBA_LENS), kw)
-     for kw in (dict(window=1024), dict())]
+     for kw in (dict(window=1024), dict())] + [
+    # qwen2-7b: 28 query heads over 4 KV heads (a head group of 8 holds 7)
+    ((8, 28, 4, 1024, 128, [0, 1, 100, 257, 512, 700, 1000, 1024]), dict()),
+    # gemma2-9b: head_dim 256, 16 query heads over 8, its softcap and
+    # scale, the window of 4096 and a global layer; lengths around the
+    # window edge and the cache's end
+] + [((8, 16, 8, 4608, 256, GEMMA2_LENS),
+      dict(softcap=50.0, scale=256 ** -0.5, **kw))
+     for kw in (dict(window=4096), dict())]
 
 
 @pytest.mark.parametrize("shape,kw", DECODE_CASES, ids=str)
@@ -139,6 +148,15 @@ FLASH_CASES = [                             # (B, H, KH, T, S, d), options
     ((2, 4, 2, 200, 333, 16), dict(causal=False, window=50)),
     # hymba-1.5b's admission wave: 16 prompts of 1088, window 1024, GQA 5
     ((16, 25, 5, 1088, 1088, 64), dict(window=1024)),
+    # qwen2-7b's admission wave: GQA 7
+    ((8, 28, 4, 128, 128, 128), dict()),
+    # head_dim 256 (gemma2-9b: 16 query heads over 8, softcap 50): ragged T
+    # and S, non-causal, and one of its prompts of 4480 with the window
+    ((2, 4, 4, 77, 77, 256), dict(causal=False)),
+    ((2, 16, 8, 300, 300, 256), dict(window=100, softcap=50.0,
+                                     scale=256 ** -0.5)),
+    ((1, 16, 8, 4480, 4480, 256), dict(window=4096, softcap=50.0,
+                                       scale=256 ** -0.5)),
 ]
 
 
@@ -1030,6 +1048,9 @@ POOL_CASES = [                  # (B, H, KH, d, bs, nb, lens), options
     ((2, 4, 4, 128, 8, 40, [320, 7]), dict(scale=0.3)),
     ((8, 16, 16, 128, 16, 64, [0, 1, 100, 257, 512, 700, 1000, 1024]),
      dict()),
+    # head_dim 256 (gemma2-9b's heads, softcap and scale)
+    ((3, 16, 8, 256, 16, 24, [0, 300, 384]),
+     dict(window=256, softcap=50.0, scale=256 ** -0.5)),
 ]
 
 
@@ -1077,7 +1098,7 @@ def test_pooled_and_int8_decode_kernels_match_plain(card, shape, kw):
 # (CHUNK in csrc/decode_attention.cu): lengths just below, at and above one
 # chunk and several chunks, windows that start inside a chunk, a window of
 # one row, GQA with G = 8 and 16 at d = 64 and 128 (G = 16: two head groups
-# a KV head), G = 64 at d = 16 (eight head groups).
+# a KV head), G = 64 at d = 16 (eight head groups), G = 2 and 1 at d = 256.
 CHUNK_CASES = [                 # (B, H, KH, d, bs, nb, lens), options
     ((4, 16, 16, 128, 16, 24, [127, 128, 129, 384]), dict()),
     ((4, 16, 2, 128, 16, 40, [255, 256, 257, 640]), dict(window=200)),
@@ -1085,6 +1106,10 @@ CHUNK_CASES = [                 # (B, H, KH, d, bs, nb, lens), options
     ((2, 32, 2, 64, 8, 40, [320, 200]), dict(window=64)),
     ((2, 64, 1, 16, 16, 20, [300, 129]), dict()),
     ((2, 4, 4, 128, 16, 32, [512, 300]), dict(window=1)),
+    # head_dim 256: G = 2 (gemma2-9b) and G = 1
+    ((4, 4, 2, 256, 16, 24, [127, 128, 129, 384]),
+     dict(window=200, softcap=50.0)),
+    ((2, 2, 2, 256, 16, 20, [255, 320]), dict()),
 ]
 
 

@@ -132,4 +132,4 @@ def test_params_from_numpy_turns_the_jax_dlrm_tree():
 
 def test_unknown_arch_names_the_roadmap():
     with pytest.raises(KeyError, match="ROADMAP"):
-        TREG.get_config("gemma2-9b")
+        TREG.get_config("internvl2-2b")

@@ -34,11 +34,15 @@ def _close(got, want, atol=ATOL, rtol=RTOL):
 
 
 MHA, GQA, MQA = (2, 4, 4, 40, 16), (3, 8, 2, 64, 16), (3, 4, 1, 48, 32)
+GEMMA = (3, 4, 2, 40, 256)
 DECODE_CASES = [                # (B, H, KH, S, d), options
     (MHA, dict()),              # S not a multiple of the Pallas block
     (GQA, dict(window=8)),
     (MQA, dict(softcap=5.0)),
     (GQA, dict(window=16, softcap=3.0, scale=0.3)),
+    # gemma2-9b's head_dim 256 and GQA 2: its softcap, scale and a window
+    (GEMMA, dict(window=24, softcap=50.0, scale=256 ** -0.5)),
+    (GEMMA, dict(softcap=1.0)),
 ]
 
 
@@ -78,6 +82,10 @@ FLASH_CASES = [                 # (B, H, KH, T, S, d), options
     (FMHA, dict(softcap=5.0)),
     (FGQA, dict(causal=False)),
     (FMHA, dict(window=12, softcap=3.0, scale=0.3)),
+    # gemma2-9b's head_dim 256 and GQA 2
+    ((1, 4, 2, 32, 32, 256), dict(window=12, softcap=50.0,
+                                  scale=256 ** -0.5)),
+    ((2, 2, 1, 32, 32, 256), dict(softcap=1.0)),
 ]
 
 
