@@ -296,6 +296,37 @@ each of which fails the run if it fails:
      tokens/s, mean and p95 TTFT, ms a decode step and the card's idle
      share over one profiled chunk.  The kernels line lists the d = 256
      instantiations (``*_d256``).
+ 21. The last two families (run after phase 20, on an empty card: < 3 GB
+     allocated before each model, checked): row 2 at whisper-small's
+     admission shapes (B = 8, H = KH = 12, d = 64: the encoder's
+     non-causal T = S = 192, the cross-attention's T = 192 over the
+     published 30-second encoder length S = 1500), row 1 over cross
+     caches of 1500 and of the served 192 rows and at the decoder's
+     self-attention (S = 448, lengths 193-448, the clamp's 448 among
+     them), row 2 at internvl2-2b's wave (B = 8, H = 16 over KH = 8, d =
+     128, T = S = 1152: 1024 patches + 128 tokens) and row 1 at its decode
+     (S = 1280, lengths 1152-1280), each against its plain version (over
+     1500 keys within 2e-3 + 1e-2 relative, a bar checked to refuse the
+     plain version with the last 28-key tile dropped), timed beside it,
+     its bound and, in turns, SDPA (the same function here: no softcap, no
+     window); reduced
+     whisper-small and internvl2-2b card vs CPU (a 16-token prefill over
+     16 random frames or 8 random patches, then 12 greedy steps through
+     ``api.decode_step`` / ``decode_step_paged``, the card fed the CPU's
+     picks: logits within the serve bar, picks equal but at near ties);
+     then full-width whisper-small on the legacy full-batch path
+     (``SliceSpec(slots=8, max_len=448, prompt_len=192)``, zero frames:
+     S_enc = 192) and internvl2-2b on the fast path (``SliceSpec(slots=8,
+     max_len=1280, prompt_len=128, chunk=8)``, 1024 zero patches before
+     every prompt), each on 16 requests of 32-192 (32-128) tokens, 128 new
+     tokens each, counted: every budget met with in-vocabulary ids,
+     whisper's row 2 exactly 36 launches an admission (12 encoder, 12
+     decoder, 12 cross layers) and row 1 exactly 24 a decode step (self
+     and cross on 12 layers), internvl's rows 1 and 2 exactly once a
+     layer a step and a wave, its requests at chunk 1 bitwise equal;
+     peak allocated < 72 GB; tokens/s, mean and p95 TTFT, ms a decode
+     step and the card's idle share over one profiled chunk
+     (``launches_whisper``, ``launches_internvl``).
 
 Prints, last: a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and
@@ -319,6 +350,9 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 # bf16 in and out, f32 inside both the kernel and its plain version: they
 # differ by the last bf16 rounding (2^-8 relative) and f32 reordering.
 KERNEL_ATOL = KERNEL_RTOL = 1e-2
+# over 1500 N(0, 1) keys an output is ~0.03 across: a bar of 1e-2 could
+# pass a kernel that skipped the last keys' tile (phase 21)
+LONG_KEYS_ATOL = 2e-3
 # `cuda_ms` holds the card for at least this many clock cycles before the
 # timed calls: ~20 ms at the H100's ~1.98 GHz; longer where the host
 # takes longer to queue them, up to QUEUE_AHEAD_MAX_S
@@ -4085,8 +4119,11 @@ def serve_counted_phase(torch, np, cfg, api, engine_mod, DA, FA, spec_d,
     and 2 launched on every layer of every decode step and admission (a
     family with attention) or never (the SSM family), peak allocated under
     SERVE_PEAK_LIMIT.  Then the same requests at chunk 1: the same tokens,
-    bit for bit; finite prefill logits of the right shape; a profile of one
-    decode chunk (the card's idle share).  Phases 18 and 20."""
+    bit for bit (not on whisper's legacy path, which steps one token a
+    host sync whatever the chunk); finite prefill logits of the right
+    shape (a VLM's over zero patches, whisper's over zero frames); a
+    profile of one decode chunk (the card's idle share).  Phases 18, 20
+    and 21."""
     check(torch.cuda.memory_allocated() < SSM_EMPTY_LIMIT,
           f"{torch.cuda.memory_allocated()} bytes allocated before serving "
           f"{cfg.name}")
@@ -4123,22 +4160,31 @@ def serve_counted_phase(torch, np, cfg, api, engine_mod, DA, FA, spec_d,
     else:
         check(not any(launches.values()),
               f"{cfg.name} has no attention but launched {launches}")
+    # the legacy path reports chunk 1: one step a host sync
     stats.update(init_s=init_s, params=n_params, weight_gb=weight_gb,
                  launches=launches, prompt_lens=[len(p) for p in prompts],
-                 ms_decode_step=stats["p50_chunk_s"] / spec.chunk * 1e3)
-    one = engine_mod.SliceSpec(**{**spec_d, "chunk": 1})
-    _, reqs1, stats1, _ = _engine_run(torch, engine_mod, cfg, params, one,
-                                      prompts, new_tokens, DA, FA, dev)
-    check([list(r.out_tokens) for r in reqs1] == streams,
-          f"{cfg.name}: chunk {spec.chunk} and chunk 1 served different "
-          f"tokens")
-    stats["chunk_invariant_bitwise"] = True
-    stats["chunk1_tokens_per_s"] = stats1["tokens_per_s"]
-    del reqs1
+                 ms_decode_step=stats["p50_chunk_s"] / stats["chunk"] * 1e3)
+    if stats["chunk"] > 1:
+        one = engine_mod.SliceSpec(**{**spec_d, "chunk": 1})
+        _, reqs1, stats1, _ = _engine_run(torch, engine_mod, cfg, params,
+                                          one, prompts, new_tokens, DA, FA,
+                                          dev)
+        check([list(r.out_tokens) for r in reqs1] == streams,
+              f"{cfg.name}: chunk {spec.chunk} and chunk 1 served different "
+              f"tokens")
+        stats["chunk_invariant_bitwise"] = True
+        stats["chunk1_tokens_per_s"] = stats1["tokens_per_s"]
+        del reqs1
     n = min(len(p) for p in prompts[:2])
     toks = torch.as_tensor(np.stack([p[-n:] for p in prompts[:2]]),
                            device=dev).long()
-    logits, _ = api.prefill(cfg, params, {"tokens": toks})
+    batch = {"tokens": toks}
+    if cfg.vision_prefix:               # a VLM's zero patches
+        batch["patches"] = torch.zeros(
+            (2, cfg.vision_prefix, cfg.vision_dim), device=dev)
+    if cfg.family == "audio":           # whisper's zero frames
+        batch["frames"] = torch.zeros((2, n, cfg.d_model), device=dev)
+    logits, _ = api.prefill(cfg, params, batch)
     check(tuple(logits.shape) == (2, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"{cfg.name} prefill logits {tuple(logits.shape)} not finite")
@@ -4720,6 +4766,30 @@ def gemma2_kernel_phase(torch, np, F, DA, FA, REF, QU, ops, dev="cuda"):
     return out
 
 
+def card_vs_cpu(torch, arch, runs):
+    """``runs[name] = (logits, picks)`` a step, for "cpu" and "gpu" (the
+    card fed the CPU's picks): every step's card logits finite and within
+    LOGIT_REL_TOL of the CPU's largest; where the picks differ, the CPU's
+    top-2 margin is under that bar (a near tie, counted).  Returns the
+    worst share of the bar, the steps and the near ties."""
+    worst, ties = 0.0, 0
+    for s, (c, g) in enumerate(zip(runs["cpu"][0], runs["gpu"][0])):
+        check(bool(torch.isfinite(g).all()), f"{arch} step {s}: not finite")
+        tol = LOGIT_REL_TOL * c.abs().max().item()
+        err = (c - g).abs().max().item()
+        check(err <= tol, f"{arch} step {s}: card vs CPU logits differ by "
+                          f"{err:.4f} > {tol:.4f}")
+        worst = max(worst, err / tol)
+        for b in torch.nonzero(runs["cpu"][1][s] != runs["gpu"][1][s]):
+            top2 = c[int(b)].topk(2).values
+            check(float(top2[0] - top2[1]) < tol,
+                  f"{arch} step {s} row {int(b)}: the card picks another "
+                  f"token off a near tie")
+            ties += 1
+    return dict(worst_share_of_tol=worst, steps=len(runs["cpu"][0]),
+                near_ties=ties)
+
+
 def dense_reference_phase(torch, registry, api, TF, dev="cuda"):
     """Reduced qwen2-7b, mistral-nemo-12b and gemma2-9b, seeded weights, on
     the CPU (plain attention, CPU matmuls) and on the card (rows 1 and 2,
@@ -4753,24 +4823,7 @@ def dense_reference_phase(torch, registry, api, TF, dev="cuda"):
                 picks.append(logits.argmax(-1).cpu())
             runs[name] = (got, picks)
             feed = feed or picks
-        worst, ties = 0.0, 0
-        for s, (c, g) in enumerate(zip(*(runs[n][0] for n in ("cpu",
-                                                               "gpu")))):
-            check(bool(torch.isfinite(g).all()), f"{arch} step {s}: not "
-                                                 f"finite")
-            tol = LOGIT_REL_TOL * c.abs().max().item()
-            err = (c - g).abs().max().item()
-            check(err <= tol, f"{arch} step {s}: card vs CPU logits differ "
-                              f"by {err:.4f} > {tol:.4f}")
-            worst = max(worst, err / tol)
-            for b in torch.nonzero(runs["cpu"][1][s] != runs["gpu"][1][s]):
-                top2 = c[int(b)].topk(2).values
-                check(float(top2[0] - top2[1]) < tol,
-                      f"{arch} step {s} row {int(b)}: the card picks "
-                      f"another token off a near tie")
-                ties += 1
-        out[arch] = dict(worst_share_of_tol=worst, steps=steps + 1,
-                         near_ties=ties)
+        out[arch] = card_vs_cpu(torch, arch, runs)
     return out
 
 
@@ -4816,6 +4869,249 @@ def dense_variants_phase(torch, np, F, registry, api, engine_mod, DA, FA,
             torch, np, cfg, api, engine_mod, DA, FA, spec, prompts,
             new_tokens, dev)
         out[arch]["arch_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches
+
+
+# Phase 21: whisper-small through the legacy full-batch engine path and
+# internvl2-2b with its vision prefix
+WHISPER_ARCH, VLM_ARCH = "whisper-small", "internvl2-2b"
+# the legacy path steps one token a host sync whatever ``chunk`` says;
+# zero frames of prompt_len rows: S_enc = 192
+WHISPER_SPEC = dict(slots=8, max_len=448, prompt_len=192, chunk=8)
+WHISPER_ENC_LEN = 1500          # the published 30-second encoder length
+WHISPER_HEADS = (12, 12, 64)
+# max_len counts the 1024 patch rows: 1024 + 128 prompt + 128 new
+VLM_SPEC = dict(slots=8, max_len=1280, prompt_len=128, chunk=8)
+VLM_HEADS = (16, 8, 128)
+VLM_PREFIX = 1024               # internvl2-2b's vision_prefix
+AUDIO_VLM_NEW_TOKENS = 128
+AUDIO_VLM_REFERENCE_STEPS = 12
+
+
+def tail_drop_caught(torch, drop, want, what, atol, rtol=KERNEL_RTOL):
+    """The max |drop - want| of the plain version over all keys (``want``)
+    and over all but the tail tile (``drop``): a kernel that skipped that
+    tile would be off by as much.  Fails unless `max_err`'s bar at
+    ``atol`` refuses it.  Returns that error."""
+    err = (drop.float() - want.float()).abs()
+    check(bool((err > atol + rtol * want.float().abs()).any()),
+          f"{what}: the bar atol {atol} + rtol {rtol} would pass a kernel "
+          f"that drops the tail tile (max error {err.max().item():.3e})")
+    return err.max().item()
+
+
+def audio_vlm_kernel_phase(torch, F, DA, FA, REF, dev="cuda"):
+    """Rows 1 and 2 at the shapes phase 21's serves give them.  Row 2 at
+    whisper-small's admission wave (B = 8, H = KH = 12, d = 64): the
+    encoder's non-causal T = S = 192 and the cross-attention's T = 192
+    over S = 1500 frames (the published 30-second encoder length); row 1
+    over whisper's cross cache of 1500 and of 192 rows (every slot's
+    length the cache's) and its decoder self-attention (S = 448, lengths
+    193-448: the served 193-320 and the clamp's 448); row 2 at
+    internvl2-2b's causal wave (B = 8, H = 16 over KH = 8, d = 128, T = S
+    = 1152) and row 1 at its decode (S = 1280, lengths 1152-1280).  Each
+    held against its plain version, timed beside it and its bound, and in
+    turns with SDPA, which computes the same function at these shapes (no
+    window, no softcap).  Over 1500 keys the bar is LONG_KEYS_ATOL, and
+    each such case also checks that the bar refuses the plain version
+    with the last 1500 % 64 = 28 keys dropped (``tail_drop_err``)."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    out = {}
+    tail = WHISPER_ENC_LEN % 64
+
+    def flash_case(key, B, H, KH, T, S, d, causal, n_sets,
+                   atol=KERNEL_ATOL):
+        sets = [(randn(B, H, T, d), randn(B, KH, S, d), randn(B, KH, S, d))
+                for _ in range(n_sets)]
+        kw = dict(causal=causal)
+        what = f"row 2 {key}: B{B} H{H} KH{KH} T{T} S{S} d{d} {kw}"
+        want = REF.flash_attention_ref(*sets[0], **kw)
+        err = max_err(torch, FA.flash_attention(*sets[0], **kw), want, what,
+                      atol=atol)
+        drop = None
+        if S == WHISPER_ENC_LEN:
+            q, k, v = sets[0]
+            drop = tail_drop_caught(torch, REF.flash_attention_ref(
+                q, k[:, :, :-tail], v[:, :, :-tail], **kw), want, what, atol)
+        del want
+        mean, turns = in_turns(torch, {
+            "kernel": lambda i: FA.flash_attention(*sets[i], **kw),
+            "library": lambda i: F.scaled_dot_product_attention(
+                *sets[i], enable_gqa=True, is_causal=causal)}, n_sets)
+        pairs = T * (T + 1) // 2 if causal else T * S
+        bound_ms, bound_by = bound(
+            (2 * B * H * T * d + 2 * B * KH * S * d) * 2,
+            4 * B * H * d * pairs)
+        out[key] = dict(
+            shape=[B, H, KH, T, S, d], causal=causal, pairs=pairs,
+            max_abs_err=err, atol=atol, tail_drop_err=drop,
+            ms=mean["kernel"],
+            plain_ms=cuda_ms(torch, lambda i: REF.flash_attention_ref(
+                *sets[i], **kw), n_sets, iters=3, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=mean["library"], ms_turns=turns)
+
+    def decode_case(key, B, H, KH, S, d, dl, n_sets, atol=KERNEL_ATOL):
+        lens = torch.tensor(dl, dtype=torch.int32, device=dev)
+        sets = [(randn(B, H, d), randn(B, S, KH, d), randn(B, S, KH, d))
+                for _ in range(n_sets)]
+        what = (f"row 1 {key}: B{B} H{H} KH{KH} S{S} d{d} lengths "
+                f"{min(dl)}-{max(dl)}")
+        want = REF.paged_decode_attention_ref(*sets[0], lens)
+        err = max_err(torch, DA.paged_decode_attention(*sets[0], lens), want,
+                      what, atol=atol)
+        drop = None
+        if S == WHISPER_ENC_LEN:
+            drop = tail_drop_caught(torch, REF.paged_decode_attention_ref(
+                *sets[0], lens - tail), want, what, atol)
+        del want
+        mask = (torch.arange(S, device=dev)[None, :]
+                < lens.long()[:, None])[:, None, None, :]
+        mean, turns = in_turns(torch, {
+            "kernel": lambda i: DA.paged_decode_attention(*sets[i], lens),
+            "library": lambda i: _sdpa_decode(F, *sets[i], mask, None)},
+            n_sets)
+        rows = sum(dl)
+        bound_ms, bound_by = bound(2 * B * H * d * 2 + 2 * rows * KH * d * 2
+                                   + B * 4, 4 * rows * H * d)
+        out[key] = dict(
+            shape=[B, H, KH, S, d], lens=[min(dl), max(dl)], rows=rows,
+            max_abs_err=err, atol=atol, tail_drop_err=drop,
+            ms=mean["kernel"],
+            plain_ms=cuda_ms(torch, lambda i: REF.paged_decode_attention_ref(
+                *sets[i], lens), n_sets),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=mean["library"],
+            ms_turns=turns)
+
+    H, KH, d = WHISPER_HEADS
+    T, S = WHISPER_SPEC["prompt_len"], WHISPER_SPEC["max_len"]
+    flash_case("whisper_encoder", 8, H, KH, T, T, d, False, 8)
+    flash_case("whisper_cross_1500", 8, H, KH, T, WHISPER_ENC_LEN, d, False,
+               4, atol=LONG_KEYS_ATOL)
+    decode_case("whisper_cross_decode_1500", 8, H, KH, WHISPER_ENC_LEN, d,
+                [WHISPER_ENC_LEN] * 8, 8, atol=LONG_KEYS_ATOL)
+    decode_case("whisper_cross_decode_192", 8, H, KH, T, d, [T] * 8, 8)
+    decode_case("whisper_self_decode_448", 8, H, KH, S, d,
+                [T + 1, T + 1, 256, 320, 320, S - 1, S, S], 8)
+    H, KH, d = VLM_HEADS
+    T, S = VLM_SPEC["prompt_len"] + VLM_PREFIX, VLM_SPEC["max_len"]
+    flash_case("internvl_wave", 8, H, KH, T, T, d, True, 2)
+    decode_case("internvl_decode_1280", 8, H, KH, S, d,
+                [T, T + 1, 1170, 1200, 1231, 1250, S - 1, S], 4)
+    return out
+
+
+def audio_vlm_reference_phase(torch, registry, api, TF, dev="cuda"):
+    """Reduced whisper-small and internvl2-2b, seeded weights, on the CPU
+    (plain attention, CPU matmuls) and on the card (rows 1 and 2, cuBLAS):
+    a 16-token prefill over 16 random frames (whisper) or 8 random patches
+    (internvl), then 12 greedy decode steps (``api.decode_step`` over
+    whisper's shared-position cache, ``decode_step_paged`` for the VLM),
+    the card fed the CPU's picks.  Logits within LOGIT_REL_TOL of the
+    CPU's largest at every step; the card's pick equals the CPU's at every
+    step, or the CPU's top-2 margin there is under that bar (a near tie,
+    counted).  Returns each arch's worst share of the tolerance and its
+    near ties."""
+    out = {}
+    for arch in (WHISPER_ARCH, VLM_ARCH):
+        cfg = registry.get_reduced(arch)
+        p_cpu = api.init_params(cfg, seed=0, device="cpu")
+        p_gpu = _to(p_cpu, dev)
+        B, T, steps = 3, 16, AUDIO_VLM_REFERENCE_STEPS
+        g = torch.Generator().manual_seed(0)
+        extra = {"tokens": torch.randint(0, cfg.vocab_size, (B, T),
+                                         generator=g)}
+        if cfg.family == "audio":
+            extra["frames"] = torch.randn((B, 16, cfg.d_model), generator=g)
+        else:
+            extra["patches"] = torch.randn(
+                (B, cfg.vision_prefix, cfg.vision_dim), generator=g)
+        P = cfg.vision_prefix
+        runs, feed = {}, None
+        for name, p, d in (("cpu", p_cpu, "cpu"), ("gpu", p_gpu, dev)):
+            batch = {k: v.to(d) for k, v in extra.items()}
+            logits, cache = api.prefill(cfg, p, batch,
+                                        max_len=P + T + steps)
+            lens = torch.full((B,), P + T, dtype=torch.int32, device=d)
+            active = torch.ones((B,), dtype=torch.bool, device=d)
+            got = [logits.float().cpu()]
+            picks = [logits.argmax(-1).cpu()]
+            for s in range(steps):
+                tk = (picks[-1] if feed is None else feed[s]).to(d)
+                if cfg.family == "audio":
+                    logits, cache = api.decode_step(cfg, p, cache, tk)
+                else:
+                    logits, cache, lens = TF.decode_step_paged(
+                        cfg, p, cache, tk, lens, active)
+                got.append(logits.float().cpu())
+                picks.append(logits.argmax(-1).cpu())
+            runs[name] = (got, picks)
+            feed = feed or picks
+        out[arch] = card_vs_cpu(torch, arch, runs)
+    return out
+
+
+def whisper_trace(np, vocab):
+    """Phase 21's whisper prompts: 16 of 32-192 tokens, from seed 0."""
+    rng = np.random.default_rng(0)
+    hi = WHISPER_SPEC["prompt_len"]
+    return [rng.integers(0, vocab, size=int(rng.integers(min(32, hi),
+                                                         hi + 1)))
+            for _ in range(16)]
+
+
+def audio_vlm_phase(torch, np, F, registry, api, engine_mod, DA, FA, REF,
+                    TF, dev="cuda"):
+    """Phase 21: the last two families.  Rows 1 and 2 at whisper-small's
+    and internvl2-2b's shapes, the reduced archs card vs CPU, then
+    full-width whisper-small in ``SliceSpec(**WHISPER_SPEC)`` (the legacy
+    path) on `whisper_trace` and internvl2-2b in ``SliceSpec(**VLM_SPEC)``
+    on the serve phase's 16 prompts, 128 new tokens each, each through
+    `serve_counted_phase` on an empty card, with exact launch counts over
+    its 2 admissions (16 requests, 8 slots, equal budgets): row 2
+    (encoder_layers + 2 * num_layers) = 36 an admission for whisper
+    (encoder, decoder, cross), num_layers = 24 for internvl; row 1
+    2 * num_layers = 24 a step for whisper (self and cross), num_layers =
+    24 for internvl.  Returns (results, {arch: launches})."""
+    t_phase = time.perf_counter()
+    out = {"kernels": audio_vlm_kernel_phase(torch, F, DA, FA, REF, dev)}
+    out["kernels_s"] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reference"] = audio_vlm_reference_phase(torch, registry, api, TF,
+                                                 dev)
+    launches = {}
+    for arch in (WHISPER_ARCH, VLM_ARCH):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg = registry.get_config(arch)
+        if cfg.family == "audio":
+            spec, prompts = WHISPER_SPEC, whisper_trace(np, cfg.vocab_size)
+            per_wave, per_step = (cfg.encoder_layers + 2 * cfg.num_layers,
+                                  2 * cfg.num_layers)
+        else:
+            spec, prompts = VLM_SPEC, serve_trace(np, cfg.vocab_size)[1]
+            per_wave = per_step = cfg.num_layers
+        st, launches[arch] = serve_counted_phase(
+            torch, np, cfg, api, engine_mod, DA, FA, spec, prompts,
+            AUDIO_VLM_NEW_TOKENS, dev)
+        waves = math.ceil(len(prompts) / spec["slots"])
+        check(launches[arch]["flash_attention"] == per_wave * waves
+              and launches[arch]["paged_decode_attention"]
+              == per_step * st["decode_steps"],
+              f"{arch} launches {launches[arch]} for {st['decode_steps']} "
+              f"steps and {waves} admissions: not {per_wave} row-2 launches "
+              f"an admission and {per_step} row-1 launches a step")
+        st.update(admissions=waves, row2_per_admission=per_wave,
+                  row1_per_step=per_step, arch_s=time.perf_counter() - t0)
+        out[arch] = st
     out["phase_s"] = time.perf_counter() - t_phase
     return out, launches
 
@@ -4937,6 +5233,11 @@ def main(argv=None):
     dense_var, dense_var_launches = dense_variants_phase(
         torch, np, F, registry, api, engine_mod, DA, FA, REF, QU, ops, TF)
     log("dense variants:", json.dumps(dense_var))
+    gc.collect()
+    torch.cuda.empty_cache()
+    audio_vlm, audio_vlm_launches = audio_vlm_phase(
+        torch, np, F, registry, api, engine_mod, DA, FA, REF, TF)
+    log("whisper and internvl:", json.dumps(audio_vlm))
     gc.collect()
     torch.cuda.empty_cache()
     stats, launches = serve_phase(torch, np, registry.get_config("olmo-1b"),
@@ -5068,6 +5369,13 @@ def main(argv=None):
                       ("mistral-nemo-12b", "launches_nemo")):
         decode[key] = dense_var_launches[arch]["paged_decode_attention"]
         prefill[key] = dense_var_launches[arch]["flash_attention"]
+    # full-width whisper-small (the legacy path: row 2 on the encoder, the
+    # decoder and the cross-attention, row 1 on self and cross) and
+    # internvl2-2b (G = 2 over a 1024-patch prefix) served
+    for arch, key in ((WHISPER_ARCH, "launches_whisper"),
+                      (VLM_ARCH, "launches_internvl")):
+        decode[key] = audio_vlm_launches[arch]["paged_decode_attention"]
+        prefill[key] = audio_vlm_launches[arch]["flash_attention"]
     # the d = 256 instantiations: rows 1 and 2 counted in full-width
     # gemma2-9b's serving run, rows 1q, 3 and 3q in phase 20's ops calls;
     # times at gemma2's local layers (window 4096, softcap 50), the global
@@ -5124,7 +5432,7 @@ def main(argv=None):
             "launches_fleet", "launches_mixed", "launches_moe",
             "launches_moe_trained", "launches_hymba",
             "launches_hymba_trained", "launches_qwen2", "launches_nemo",
-            "launches_gemma2")
+            "launches_gemma2", "launches_whisper", "launches_internvl")
     extra = ("ms_global", "sdpa_no_softcap_ms")
     kernels = {"kernels": [{k: kern[k] for k in keys}
                            | {k: kern[k] for k in more + extra if k in kern}
@@ -5155,7 +5463,8 @@ def main(argv=None):
                  dense_training=dense, fault_drill=drill,
                  fleet=fleet, mixed_tenancy=mixed, moe=moe,
                  moe_training=moe_train, ssm=ssm, ssm_training=ssm_train,
-                 dense_variants=dense_var, **kernels), indent=2))
+                 dense_variants=dense_var, audio_vlm=audio_vlm, **kernels),
+            indent=2))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

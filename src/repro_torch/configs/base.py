@@ -1,13 +1,14 @@
-"""Config dataclasses the port's dense, MoE, SSM, hybrid and DLRM families
-need.
+"""Config dataclasses of the port's families (dense, MoE, SSM, hybrid,
+audio, VLM and DLRM).
 
 Copies of ``repro.configs.base.ShapeConfig``, ``AttentionConfig``,
 ``MoEConfig``, ``SSMConfig``, ``EmbeddingTableConfig``, ``DLRMConfig`` and
-``ModelConfig``, the last cut to the fields a dense, MoE, SSM or hybrid
-decoder or a DLRM reads, and of the run-level
-``ParallelConfig``, ``OptimizerConfig`` and ``RunConfig``, whole.  The port keeps its own
-copy instead of importing the JAX package; ``tests/test_torch_interop.py``
-holds every kept field equal to the reference config.
+``ModelConfig``, the last cut to the fields the port's models read
+(whisper's encoder fields and a VLM's vision prefix among them), and of
+the run-level ``ParallelConfig``, ``OptimizerConfig`` and ``RunConfig``,
+whole.  The port keeps its own copy instead of importing the JAX package;
+``tests/test_torch_interop.py`` holds every kept field equal to the
+reference config.
 """
 from __future__ import annotations
 
@@ -98,8 +99,8 @@ class DLRMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # "dense" | "moe" | "ssm" | "hybrid" | "dlrm"
-                                       # (others: not ported)
+    family: str                        # "dense" | "moe" | "ssm" | "hybrid" |
+                                       # "audio" | "vlm" | "dlrm"
     num_layers: int
     d_model: int
     d_ff: int
@@ -117,6 +118,10 @@ class ModelConfig:
     post_norm: bool = False            # gemma2 post-layer norms
     embed_scale: bool = False          # gemma2 scales embeddings by sqrt(d_model)
     max_seq_len: int = 131072
+
+    # encoder-decoder (whisper): encoder layer count; 0 = decoder-only
+    encoder_layers: int = 0
+    encoder_seq_reduction: int = 1     # conv frontend downsampling (stubbed)
 
     # vlm: number of prefix patch positions fed as stub embeddings
     vision_prefix: int = 0

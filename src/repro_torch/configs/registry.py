@@ -1,7 +1,6 @@
-"""Architecture registry for the archs the port runs: --arch <id> ->
-(full config, reduced config), under the names of
-``repro.configs.registry``.  Other archs join as their families are
-ported (ROADMAP.md, queue 1, item 11)."""
+"""Architecture registry of the port: --arch <id> -> (full config, reduced
+config), under the names and in the order of ``repro.configs.registry``,
+whose ``ALL_ARCHS`` equals `ARCHS`."""
 from __future__ import annotations
 
 import importlib
@@ -9,14 +8,16 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
-    "gemma2-9b": "repro_torch.configs.gemma2_9b",
+    "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "whisper-small": "repro_torch.configs.whisper_small",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe",
-    "mamba2-130m": "repro_torch.configs.mamba2_130m",
-    "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
     "dlrm0": "repro_torch.configs.dlrm0",
 }
 
@@ -25,9 +26,8 @@ ARCHS = tuple(_ARCH_MODULES)
 
 def _module(name: str):
     if name not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; the port runs "
-                       f"{sorted(_ARCH_MODULES)} (other archs: ROADMAP.md "
-                       f"queue 1, item 11)")
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[name])
 
 

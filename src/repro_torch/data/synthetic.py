@@ -6,8 +6,9 @@ Deterministic, seekable, host-side generation, pure numpy, so that
   * DLRM categorical features (power-law ids, per-table valency),
   * vision-patch stubs for a VLM prefix.
 
-The audio branch needs ``models/whisper.split_seq``, which is not ported:
-it raises, naming ROADMAP.md queue 1, item 11.
+The audio branch (frames beside tokens, ``models/whisper.split_seq``) is
+not ported: it raises, naming ROADMAP.md queue 1, item 11(i), which
+trains whisper.
 
 ``Dataset.batch(step)`` is pure in (seed, step): any host can regenerate any
 step, which is what makes checkpoint/restart and elastic rescaling exact.
@@ -42,8 +43,8 @@ class Dataset:
         cfg, shape = self.cfg, self.shape
         if cfg.family == "audio":
             raise NotImplementedError(
-                "audio batches need models/whisper.split_seq, which waits "
-                "for ROADMAP.md queue 1, item 11")
+                "audio batches (frames beside tokens, whisper.split_seq) "
+                "wait for ROADMAP.md queue 1, item 11(i)")
         rng = self._rng(step)
         B, T = shape.global_batch, shape.seq_len
         if cfg.family == "dlrm":

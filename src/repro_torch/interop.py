@@ -13,6 +13,7 @@ frameworks on the same weights:
     layers/post_ln1, post_ln2          as ln1 (post_norm: gemma2)
     head             (d, V)            absent with tied embeddings (olmo,
                                        gemma2's 256000-row ``embed``)
+    vision_proj      (vision_dim, d)   a VLM's patch projection (internvl2)
 
 a MoE model's (``models/moe.py``), over its Ls = L - dense_layers stacked
 layers, in place of ``mlp``:
@@ -21,6 +22,15 @@ layers, in place of ``mlp``:
     layers/moe/wg,wu     (Ls, E, d, F)   wo (Ls, E, F, d)
     layers/moe/shared    {wg, wu (Ls, d, f), wo (Ls, f, d)} (kimi-k2)
     dense_prefix         list of unstacked blocks {ln1, attn, ln2, mlp}
+
+whisper's (``models/whisper.py``; layernorm ``{w, b}`` norms, the
+embedding tied):
+
+    embed (V, d)     enc_final_norm, final_norm {w, b}
+    encoder/ln1, attn, ln2, mlp        stacked over encoder_layers, as
+                                       ``layers`` (``mlp/wi``, ``wo``)
+    decoder/ln1, attn, ln_x, ln2, mlp  stacked over num_layers
+    decoder/xattn/wq, wk, wv, wo       the cross-attention, no qkv bias
 
 and the DLRM's (``models/dlrm.py``):
 

@@ -92,7 +92,7 @@ def loss_fn(cfg: ModelConfig, params, batch,
     if cfg.family not in TF.DECODER_FAMILIES:
         raise NotImplementedError(
             f"training the {cfg.family!r} family waits for ROADMAP.md "
-            f"queue 1, item 11")
+            f"queue 1, item 11(i)")
     labels = batch["labels"]
     fwd = {k: v for k, v in batch.items() if k != "labels"}
     T = labels.shape[1]

@@ -3,12 +3,17 @@
 The dense, MoE, SSM (mamba2) and hybrid (hymba) families train
 (`forward`, with the aux loss the MoE layers sum) and serve (prefill,
 decode; only the dense family on the pooled KV cache, as in the
-reference); the DLRM family scores and trains
-(`init_params`, `forward`, `make_batch`).  Every other family, and every
-entry point a family does not have yet, raises ``NotImplementedError``
-naming its ROADMAP.md item.  Entry points that create tensors take
-``device=`` and default to the card: without CUDA and without
-``device="cpu"`` they raise instead of running on the CPU.
+reference).  The VLM (internvl2: a dense decoder after a projected patch
+prefix) and the audio family (whisper's encoder-decoder,
+``models/whisper.py``) serve; their training waits for ROADMAP.md queue
+1, item 11(i).  Whisper has its own cache and serves through `prefill`
+and `decode_step` (the engine's legacy full-batch path), never the
+per-slot `prefill_slot` / `decode_n`.  The DLRM family scores and trains
+(`init_params`, `forward`, `make_batch`).  An entry point a family does
+not have raises ``NotImplementedError`` naming its ROADMAP.md item.
+Entry points that create tensors take ``device=`` and default to the
+card: without CUDA and without ``device="cpu"`` they raise instead of
+running on the CPU.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import dlrm as DL
 from repro_torch.models import transformer as TF
+from repro_torch.models import whisper as WH
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -32,29 +38,32 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+_MODELS = TF.SERVE_FAMILIES + ("audio", "dlrm")
+
+
 def _family(cfg: ModelConfig, *ok: str) -> None:
     """Raise unless ``cfg.family`` is one of ``ok`` (default: the decoder
-    families, dense, MoE, SSM and hybrid)."""
-    ok = ok or TF.DECODER_FAMILIES
+    families that serve through ``models.transformer``)."""
+    ok = ok or TF.SERVE_FAMILIES
     if cfg.family in ok:
         return
-    if cfg.family == "audio":
+    if cfg.family not in _MODELS:
         raise NotImplementedError(
-            "whisper (legacy full-batch serve path) waits for ROADMAP.md "
-            "queue 1, item 11")
+            f"unknown family {cfg.family!r}; the port runs {_MODELS}")
     if cfg.family == "dlrm":
         raise NotImplementedError(
             "the DLRM scores through api.forward; it has no decoder")
-    if cfg.family in TF.DECODER_FAMILIES and ok == ("dlrm",):  # make_batch
+    if ok == ("dlrm",):                                   # make_batch
+        item = ("11(i)" if cfg.family in ("audio", "vlm") else "5")
         raise NotImplementedError(
             f"api.make_batch of the {cfg.family} family waits for ROADMAP.md "
-            f"queue 1, item 5; training draws its batches from "
+            f"queue 1, item {item}; training draws its batches from "
             f"data.synthetic.Dataset")
-    if cfg.family in TF.DECODER_FAMILIES:
+    if ok == ("dense",):
         raise NotImplementedError(
             "pooled prefix-shared KV is dense-transformer only")
     raise NotImplementedError(
-        f"family {cfg.family!r} waits for ROADMAP.md queue 1, item 11")
+        f"the {cfg.family} family has no {ok} entry point here")
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
@@ -66,7 +75,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     params are f32, as the reference's.  ``device="meta"`` gives the
     shapes and dtypes only (`param_shapes`).  (Weights that must equal the
     JAX package's come over through ``repro_torch.interop``.)"""
-    _family(cfg, *TF.DECODER_FAMILIES, "dlrm")
+    _family(cfg, *_MODELS)
     dev = resolve_device(device)
     # a meta tensor draws nothing: any generator will do
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
@@ -75,8 +84,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         if dtype not in (None, torch.float32):
             raise ValueError(f"DLRM params are float32, not {dtype}")
         return DL.init_params(cfg, gen, device=dev)
-    return TF.init_params(cfg, gen, device=dev,
-                          dtype=dtype or torch.bfloat16)
+    model = WH if cfg.family == "audio" else TF
+    return model.init_params(cfg, gen, device=dev,
+                             dtype=dtype or torch.bfloat16)
 
 
 def param_shapes(cfg: ModelConfig, dtype: Optional[torch.dtype] = None):
@@ -86,14 +96,18 @@ def param_shapes(cfg: ModelConfig, dtype: Optional[torch.dtype] = None):
 
 
 def forward(cfg: ModelConfig, p, batch, **kw):
-    """Dense, MoE, SSM, hybrid: -> (logits (B, T, V) f32, aux: the MoE
+    """Dense, MoE, SSM, hybrid, VLM: -> (logits (B, T, V) f32, aux: the MoE
     load-balance losses summed, 0.0 for the others); ``remat=``,
     ``kv_chunk=``, ``return_hidden=`` and ``attn_impl=`` as
-    ``transformer.forward``.  DLRM: -> (logits (B,) f32, aux 0.0);
+    ``transformer.forward`` (a VLM's batch carries ``patches`` and its T
+    counts them).  Audio: batch {frames, tokens} -> (logits, 0.0)
+    (``whisper.forward``).  DLRM: -> (logits (B,) f32, aux 0.0);
     ``fused=`` picks the lookup route (see ``models/dlrm.forward``)."""
-    _family(cfg, *TF.DECODER_FAMILIES, "dlrm")
+    _family(cfg, *_MODELS)
     if cfg.family == "dlrm":
         return DL.forward(cfg, p, batch, **kw)
+    if cfg.family == "audio":
+        return WH.forward(cfg, p, batch, **kw)
     return TF.forward(cfg, p, batch, **kw)
 
 
@@ -118,13 +132,39 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig, *, seed: int = 0,
 
 
 def prefill(cfg: ModelConfig, p, batch, *, max_len: Optional[int] = None):
-    _family(cfg)
+    """-> (last-position logits (B, V) f32, cache of ``max_len`` rows); a
+    whisper batch holds ``frames`` and ``tokens``, a VLM's ``patches`` and
+    ``tokens``."""
+    _family(cfg, *TF.SERVE_FAMILIES, "audio")
+    if cfg.family == "audio":
+        return WH.prefill(cfg, p, batch, max_len=max_len)
     return TF.prefill(cfg, p, batch, max_len=max_len)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
-    _family(cfg)
-    return TF.init_cache(cfg, batch, max_len, device=resolve_device(device))
+def decode_step(cfg: ModelConfig, p, cache, tokens):
+    """Whisper's one-token step over its shared-position cache (the legacy
+    serve path, ``whisper.decode_step``).  The decoder families decode
+    through `decode_n` (``transformer.decode_step_paged``); the reference's
+    shared-position ``transformer.decode_step`` waits for ROADMAP.md
+    queue 1, item 5."""
+    if cfg.family != "audio":
+        _family(cfg, *_MODELS)
+        raise NotImplementedError(
+            f"api.decode_step of the {cfg.family} family waits for "
+            f"ROADMAP.md queue 1, item 5; decode through api.decode_n")
+    return WH.decode_step(cfg, p, cache, tokens)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               enc_len: Optional[int] = None, device="cuda"):
+    """Zeros of a decode cache; whisper's holds ``enc_len`` (default
+    ``max_len``) cross rows beside its ``max_len`` self rows."""
+    _family(cfg, *TF.SERVE_FAMILIES, "audio")
+    dev = resolve_device(device)
+    if cfg.family == "audio":
+        return WH.init_cache(cfg, batch, max_len, enc_len or max_len,
+                             device=dev)
+    return TF.init_cache(cfg, batch, max_len, device=dev)
 
 
 # -- serve fast path --------------------------------------------------------
@@ -137,6 +177,10 @@ def prefill_slot(cfg: ModelConfig, p, batch, cache, slot, *,
     ``cache`` (in place); rows whose slot index is out of range are padding
     and are dropped.
     Returns (last_logits (n, V), cache)."""
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            "incremental admission is transformer-cache only; serve whisper "
+            "through the legacy full-batch path")
     _family(cfg)
     logits, slot_cache = TF.prefill(cfg, p, batch, max_len=max_len)
     return logits, TF.cache_insert(cache, slot_cache, slot)
@@ -151,6 +195,10 @@ def decode_n(cfg: ModelConfig, p, cache, tokens, seq_lens, budget, *,
     """Multi-step decode with per-slot lengths/budgets; see
     transformer.decode_n.  Pass ``tables=(B, nb)`` to decode over a pooled
     prefix-shared KV cache (`init_kv_pool`) instead of per-slot rows."""
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            "decode_n is transformer-cache only; serve whisper through the "
+            "legacy per-token path")
     _family(cfg)
     return TF.decode_n(cfg, p, cache, tokens, seq_lens, budget,
                        num_steps=num_steps, **kw)

@@ -1,4 +1,4 @@
-"""Decoder stack of the port (dense, MoE, SSM and hybrid families): init,
+"""Decoder stack of the port (dense, MoE, SSM, hybrid and VLM families): init,
 the training forward, prefill, paged decode, decode_n, over a per-slot
 cache or, for the dense family, a pooled block-table one (`init_kv_pool`,
 `prefill_suffix`).
@@ -7,7 +7,11 @@ Ports of ``repro/models/transformer.py`` for those families.
 A MoE model's stacked layers carry ``moe`` in place of ``mlp``
 (``models/moe.py``); its dense prefix (kimi-k2) is the unstacked list
 ``dense_prefix`` with its own KV (``Cache.prefix_k/v``), run before the
-stack with global windows, as the reference unrolls it.  An SSM model
+stack with global windows, as the reference unrolls it.  A VLM
+(internvl2) is a dense decoder whose ``forward`` and ``prefill`` prepend
+``batch["patches"] @ vision_proj`` (bf16) to the token embeddings, so its
+positions and cache rows run over the P patch positions, then the T
+tokens; it serves and does not train yet.  An SSM model
 (mamba2) has ``ln1`` and the SSD block ``ssm`` a layer and no FFN; a
 hybrid one (hymba) runs attention and the SSD block side by side on the
 same normed input and mixes them as ``0.5 * (attn * (1 + alpha_attn) +
@@ -56,16 +60,23 @@ from repro_torch.models import ssm as SSM
 GLOBAL_WINDOW = 1 << 30
 
 
+# the decoder-only families that train and serve
 DECODER_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# ... and those that serve: a VLM's training waits for ROADMAP.md queue 1,
+# item 11(i)
+SERVE_FAMILIES = DECODER_FAMILIES + ("vlm",)
 
 
 def _require_decoder(cfg: ModelConfig) -> None:
-    if (cfg.family not in DECODER_FAMILIES or cfg.vision_prefix
+    if cfg.vision_prefix and cfg.family != "vlm":
+        raise NotImplementedError(
+            f"a vision prefix belongs to the vlm family, not to {cfg.name} "
+            f"({cfg.family})")
+    if (cfg.family not in SERVE_FAMILIES
             or (cfg.attention is None) != (cfg.family == "ssm")):
         raise NotImplementedError(
-            f"repro_torch serves the dense, MoE, SSM and hybrid families "
-            f"only; {cfg.name} ({cfg.family}) waits for ROADMAP.md queue 1, "
-            f"item 11")
+            f"models.transformer runs the dense, MoE, SSM, hybrid and VLM "
+            f"decoders, not {cfg.name} ({cfg.family})")
 
 
 def _require_dense(cfg: ModelConfig) -> None:
@@ -156,9 +167,11 @@ def _norm_init(cfg: ModelConfig, lead, device, dtype):
     return {"w": torch.zeros(shape, device=device, dtype=dtype)}
 
 
-def _block_init(cfg: ModelConfig, gen, lead, d_ff, device, dtype):
-    """One pre-norm block's attention and norms (stacked over ``lead``),
-    with a dense MLP of width ``d_ff``, or none for ``d_ff=None``."""
+def attention_init(cfg: ModelConfig, gen, lead, device, dtype, *,
+                   cross: bool = False):
+    """Attention projections stacked over ``lead``; qkv biases (zeros)
+    where the config has them, never for ``cross`` attention (the
+    reference's ``attention_init``)."""
     a = cfg.attention
     d = cfg.d_model
     H, KH, hd = a.num_heads, a.num_kv_heads, a.head_dim
@@ -168,11 +181,23 @@ def _block_init(cfg: ModelConfig, gen, lead, d_ff, device, dtype):
 
     attn = {"wq": tn(d, H, hd), "wk": tn(d, KH, hd), "wv": tn(d, KH, hd),
             "wo": tn(H * hd, d)}
-    if a.qkv_bias:
+    if a.qkv_bias and not cross:
         attn.update({k: torch.zeros(lead + (h, hd), device=device,
                                     dtype=dtype)
                      for k, h in (("bq", H), ("bk", KH), ("bv", KH))})
-    blk = {"ln1": _norm_init(cfg, lead, device, dtype), "attn": attn,
+    return attn
+
+
+def _block_init(cfg: ModelConfig, gen, lead, d_ff, device, dtype):
+    """One pre-norm block's attention and norms (stacked over ``lead``),
+    with a dense MLP of width ``d_ff``, or none for ``d_ff=None``."""
+    d = cfg.d_model
+
+    def tn(*shape):
+        return L.trunc_normal(gen, lead + shape, shape[0], device, dtype)
+
+    blk = {"ln1": _norm_init(cfg, lead, device, dtype),
+           "attn": attention_init(cfg, gen, lead, device, dtype),
            "ln2": _norm_init(cfg, lead, device, dtype)}
     if d_ff is not None:
         mlp = {"wo": tn(d_ff, d)}
@@ -193,7 +218,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
     prefix is the list ``dense_prefix`` of unstacked blocks.  An SSM
     model's layers hold ``ln1`` and ``ssm`` (``ssm.ssd_init``); a hybrid
     model's add ``ssm`` and the f32 zeros ``alpha_attn``, ``alpha_ssm``
-    (L, d) to a dense block."""
+    (L, d) to a dense block.  A VLM adds ``vision_proj``
+    (vision_dim, d)."""
     _require_decoder(cfg)
     d, n = cfg.d_model, _n_scan(cfg)
     moe = cfg.family == "moe"
@@ -222,6 +248,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *, device,
     if not cfg.tie_embeddings:
         p["head"] = L.trunc_normal(gen, (d, cfg.vocab_size), d, device,
                                    dtype)
+    if cfg.vision_prefix:
+        p["vision_proj"] = L.trunc_normal(gen, (cfg.vision_dim, d),
+                                          cfg.vision_dim, device, dtype)
     if moe and cfg.moe.dense_layers:
         p["dense_prefix"] = [
             _block_init(cfg, gen, (), cfg.moe.dense_ffw, device, dtype)
@@ -237,6 +266,19 @@ def embed_tokens(cfg: ModelConfig, p, tokens, dtype=torch.bfloat16):
     x = Q.take(p["embed"], tokens, dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dtype)
+    return x
+
+
+def embed_inputs(cfg: ModelConfig, p, batch, dtype=torch.bfloat16):
+    """The residual stream's input (B, P + T, D): a VLM's projected patches
+    ``batch["patches"] @ vision_proj`` (bf16 operands, as the reference's
+    einsum) before the T token embeddings; P = 0 for the other
+    families."""
+    x = embed_tokens(cfg, p, batch["tokens"], dtype)
+    if cfg.vision_prefix:
+        pv = torch.einsum("bpe,ed->bpd", batch["patches"].to(dtype),
+                          Q.cast(p["vision_proj"], dtype))
+        x = torch.cat([pv, x], dim=1)
     return x
 
 
@@ -390,16 +432,18 @@ def _blocks(cfg: ModelConfig, p, cache: Cache):
 def prefill(cfg: ModelConfig, p, batch: Dict[str, Any], *,
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
     """Forward over the prompt; returns (last-position logits (B, V) f32,
-    filled cache of length ``max_len`` (default T)).  A MoE layer routes
+    filled cache of length ``max_len`` (default T)).  A VLM's prompt is
+    its P patch positions and T tokens: the cache holds P + T rows and
+    ``max_len`` counts both.  A MoE layer routes
     all B x T tokens together (capacity counts the whole dispatch, padding
     included, as the reference's).  An SSD block runs `ssm.ssd_forward`
     over the whole prompt and leaves its final state and raw conv tail in
     the cache."""
     _require_decoder(cfg)
     tokens = batch["tokens"]
-    B, T = tokens.shape
     a = cfg.attention
-    x = embed_tokens(cfg, p, tokens)
+    x = embed_inputs(cfg, p, batch)
+    B, T = x.shape[:2]
     S = max_len or T
     positions = torch.arange(T, device=tokens.device).expand(B, T)
     cache = init_cache(cfg, B, S, device=tokens.device)
@@ -489,7 +533,8 @@ def forward(cfg: ModelConfig, p, batch: Dict[str, Any], *,
             kv_chunk: int = 1024, remat: bool = False,
             return_hidden: bool = False, attn_impl: str = "blocked"):
     """Teacher-forced forward -> (logits (B, T, V) f32, aux), or (final
-    hidden (B, T, D), aux) with ``return_hidden``.  aux is the MoE layers'
+    hidden (B, T, D), aux) with ``return_hidden`` (a VLM's T counts its P
+    patch positions before the tokens).  aux is the MoE layers'
     load-balance losses summed in layer order (0.0 for the dense family);
     a MoE model's dense prefix runs first, with global windows.
 
@@ -501,8 +546,8 @@ def forward(cfg: ModelConfig, p, batch: Dict[str, Any], *,
     the loss and the gradients keep their bits."""
     _require_decoder(cfg)
     tokens = batch["tokens"]
-    B, T = tokens.shape
-    x = embed_tokens(cfg, p, tokens)
+    x = embed_inputs(cfg, p, batch)
+    B, T = x.shape[:2]
     positions = torch.arange(T, device=tokens.device).expand(B, T)
     n = _n_scan(cfg)
     if attn_impl == "qchunked" and can_qchunk(cfg):

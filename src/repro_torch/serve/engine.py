@@ -1,6 +1,7 @@
 """Batched serving engine of the port: incremental continuous batching +
 chunked decode (the fast path of ``repro/serve/engine.py``, for the dense,
-MoE, SSM and hybrid families).
+MoE, SSM, hybrid and VLM families), and the reference's legacy
+full-batch path for whisper's encoder-decoder cache.
 
   * **Incremental admission** — an admission wave prefills ONLY the
     admitted requests (``api.prefill_slot``: one prefill whose KV rows are
@@ -19,7 +20,8 @@ MoE, SSM and hybrid families).
 
 Kept from the reference on purpose: prompts are left-padded with token 0
 to ``prompt_len`` and the pads are attended as real tokens (``seq_lens`` is
-``prompt_len`` after admission; an SSD block's state absorbs them too); a
+``prompt_len`` after admission, plus a VLM's ``vision_prefix`` patch rows,
+which come first; an SSD block's state absorbs them too); a
 wave is padded to ``slots`` rows whose
 out-of-range slot index drops them (explicitly here, where JAX drops
 out-of-bounds scatter updates).  The wave is one prefill dispatch, so a
@@ -39,9 +41,18 @@ what the dequantised tree gives.
 
 The engine's counters (``prefill_flops_proxy``, the ``kv_*`` counts and the
 ``serve.chunk_s`` histogram) live in an ``obs.Telemetry`` registry under the
-reference's names and labels; the attributes are views of it.  The whisper
-legacy path and the families not yet ported raise
-``NotImplementedError``.
+reference's names and labels; the attributes are views of it.
+
+The legacy path (whisper, ``family == "audio"``), as the reference's:
+every admission re-prefills the WHOLE slot batch (``api.prefill``), each
+slot's prompt the last ``prompt_len`` tokens of its prompt and the tokens
+it has produced, left-padded with 0 (pads not masked), its frames zeros of
+(slots, prompt_len, d_model); then one ``api.decode_step`` a step at the
+batch's shared position, the host reading every step's tokens.  Tokens
+are greedy argmax whatever ``spec.greedy`` says, ``kv_block`` is ignored,
+``run()`` reports ``chunk`` 1 and ``prefill_flops_proxy`` stays 0, as in
+the reference.  A VLM or whisper with ``quant="int8"`` raises (ROADMAP.md
+queue 1, item 11(i)).
 """
 from __future__ import annotations
 
@@ -118,7 +129,8 @@ class ServeEngine:
     """Continuous-batching serving engine on one device.
 
     Args:
-      cfg: model config (dense, MoE, SSM or hybrid family).
+      cfg: model config (dense, MoE, SSM, hybrid or VLM family on the fast
+        path; audio on the legacy one).
       params: param tree (JAX layout, see ``repro_torch.interop``) already
         on ``device``.
       spec: `SliceSpec` serving envelope.
@@ -135,16 +147,20 @@ class ServeEngine:
                  obs_labels: Optional[Dict[str, Any]] = None):
         spec = spec or SliceSpec()
         self.device = api.resolve_device(device)
-        if cfg.family == "audio":
+        if cfg.family not in TF.SERVE_FAMILIES + ("audio",):
             raise NotImplementedError(
-                "the whisper legacy full-batch path waits for ROADMAP.md "
-                "queue 1, item 11")
-        if cfg.family not in TF.DECODER_FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} waits for ROADMAP.md queue 1, item 11")
-        if spec.kv_block and cfg.family != "dense":
+                f"ServeEngine serves decoders and whisper, not the "
+                f"{cfg.family!r} family")
+        # whisper's enc-dec cache has no per-slot insert: it keeps the
+        # legacy full-batch prefill + per-token decode loop
+        self._fast = cfg.family != "audio"
+        if spec.kv_block and self._fast and cfg.family != "dense":
             raise NotImplementedError(
                 "pooled prefix-shared KV is dense-transformer only")
+        if spec.quant == "int8" and cfg.family in ("audio", "vlm"):
+            raise NotImplementedError(
+                f"int8 weights of the {cfg.family} family wait for "
+                f"ROADMAP.md queue 1, item 11(i)")
         embed = params["embed"]
         pdev = (embed.q if isinstance(embed, Q.QTensor) else embed).device
         if pdev.type != self.device.type:
@@ -188,7 +204,7 @@ class ServeEngine:
         self._c_mig_suffix = reg.counter(
             "serve.kv_migrated_suffix_blocks", **labels)
         self._h_chunk = reg.histogram("serve.chunk_s", **labels)
-        self._pooled = spec.kv_block > 0
+        self._pooled = self._fast and spec.kv_block > 0
         if self._pooled:
             nb = spec.max_len // spec.kv_block
             self._nb = nb
@@ -215,10 +231,20 @@ class ServeEngine:
         self.pending.append(r)
         return r
 
+    def _extra_inputs(self, n: int) -> Dict[str, Any]:
+        """A VLM's stub vision input: zero patches for ``n`` rows."""
+        if self.cfg.family != "vlm":
+            return {}
+        return {"patches": torch.zeros(
+            (n, self.cfg.vision_prefix, self.cfg.vision_dim),
+            dtype=torch.float32, device=self.device)}
+
     def _admit(self) -> bool:
         """Fill empty slots from the queue with ONE prefill over a wave
         padded to ``slots`` rows; padding rows carry the out-of-range slot
         index ``slots`` and are dropped."""
+        if not self._fast:
+            return self._admit_full()
         if self._pooled:
             return self._admit_pooled()
         if not self.pending:
@@ -243,11 +269,13 @@ class ServeEngine:
         rids = np.zeros((self.slots,), np.int32)
         rids[:n] = [r.rid for r in admitted]
         self._c_prefill.inc(self.prompt_len * self.slots)
-        tokens = torch.as_tensor(prompts, device=self.device)
+        batch = {"tokens": torch.as_tensor(prompts, device=self.device),
+                 **self._extra_inputs(self.slots)}
         logits, self.cache = api.prefill_slot(
-            self.cfg, self.params, {"tokens": tokens}, self.cache, slots,
+            self.cfg, self.params, batch, self.cache, slots,
             max_len=self.max_len)
-        prefilled = self.prompt_len
+        # a VLM's cached rows include its patch prefix
+        prefilled = self.prompt_len + self.cfg.vision_prefix
         dev_rids = torch.as_tensor(rids, device=self.device)
         if self.greedy:
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -549,8 +577,16 @@ class ServeEngine:
 
     def step_chunk(self) -> int:
         """Admit + advance ONE decode chunk (`spec.chunk` steps); returns the
-        number of still-active requests."""
+        number of still-active requests.  The legacy path takes up to
+        ``chunk`` `step` calls, stopping where none is active."""
         self._admit()
+        if not self._fast:
+            n = 0
+            for _ in range(self.spec.chunk):
+                n = self.step()
+                if n == 0:
+                    break
+            return n
         if self._n_active() == 0:
             return 0
         self._decode_chunk(self.spec.chunk)
@@ -558,7 +594,12 @@ class ServeEngine:
 
     def step(self) -> int:
         """One decode step over all slots (a chunk of one step, so the
-        numerics match ``run`` at any chunk size); returns #active."""
+        numerics match ``run`` at any chunk size); returns #active.  The
+        legacy path admits only when no request is active."""
+        if not self._fast:
+            if self._n_active() == 0 and not self._admit():
+                return 0
+            return self._step_legacy()
         self._admit()
         if self._n_active() == 0:
             return 0
@@ -571,6 +612,15 @@ class ServeEngine:
         self._steps = 0
         t0 = time.monotonic()
         while self._steps < max_steps:
+            if not self._fast:
+                # the legacy path: when nothing is active, admit the next
+                # wave while requests are owed tokens
+                if self.step() == 0:
+                    if not any(not r.done for r in self.queue):
+                        break
+                    if not self._admit():
+                        break
+                continue
             self._admit()
             if self._n_active() == 0:
                 if self.pending:
@@ -595,7 +645,71 @@ class ServeEngine:
             "p50_ttft_s": _pct(ttfts, 50),
             "p95_ttft_s": _pct(ttfts, 95),
             "decode_steps": self._steps,
-            "chunk": self.spec.chunk,
+            "chunk": self.spec.chunk if self._fast else 1,
             "p50_chunk_s": _pct(self.chunk_lat_s, 50),
             "p95_chunk_s": _pct(self.chunk_lat_s, 95),
         }
+
+    # -- legacy full-batch path (whisper enc-dec cache) -----------------------
+
+    def _admit_full(self) -> bool:
+        """Legacy admission: fill the free slots from the queue, then
+        (re)prefill the whole slot batch; each request still owed tokens
+        takes the prefill's next token."""
+        free = [i for i, a in enumerate(self.active)
+                if a is None or a.done]
+        if not self.pending or not free:
+            return False
+        for i in free:
+            if not self.pending:
+                break
+            self.active[i] = self.pending.pop(0)
+        prompts = np.zeros((self.slots, self.prompt_len), np.int64)
+        for i, r in enumerate(self.active):
+            if r is None:
+                continue
+            seq = np.concatenate([r.prompt,
+                                  np.asarray(r.out_tokens, np.int32)])
+            seq = seq[-self.prompt_len:]
+            prompts[i, -len(seq):] = seq
+        batch = {"tokens": torch.as_tensor(prompts, device=self.device),
+                 "frames": torch.zeros(
+                     (self.slots, self.prompt_len, self.cfg.d_model),
+                     dtype=torch.float32, device=self.device)}
+        logits, self.cache = api.prefill(self.cfg, self.params, batch,
+                                         max_len=self.max_len)
+        self.last_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = self.last_tokens.cpu().numpy()
+        now = time.monotonic()
+        for i, r in enumerate(self.active):
+            if r is not None and not r.done:
+                r.out_tokens.append(int(nxt[i]))
+                if r.t_first is None:
+                    r.t_first = now
+                if len(r.out_tokens) >= r.max_new_tokens:
+                    r.done = True
+                    r.t_done = now
+        return True
+
+    def _step_legacy(self) -> int:
+        """One ``api.decode_step`` of the whole batch; returns the requests
+        still owed tokens."""
+        t0 = time.perf_counter()
+        logits, self.cache = api.decode_step(self.cfg, self.params,
+                                             self.cache, self.last_tokens)
+        self.last_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = self.last_tokens.cpu().numpy()                 # syncs
+        self._record_latency(time.perf_counter() - t0)
+        self._steps += 1
+        n_active = 0
+        now = time.monotonic()
+        for i, r in enumerate(self.active):
+            if r is None or r.done:
+                continue
+            r.out_tokens.append(int(nxt[i]))
+            if len(r.out_tokens) >= r.max_new_tokens:
+                r.done = True
+                r.t_done = now
+            else:
+                n_active += 1
+        return n_active

@@ -76,7 +76,7 @@ class Trainer:
         if run.model.family not in TF.DECODER_FAMILIES + ("dlrm",):
             raise NotImplementedError(
                 f"training the {run.model.family!r} family waits for "
-                f"ROADMAP.md queue 1, item 11")
+                f"ROADMAP.md queue 1, item 11(i)")
         self.run = run
         self.device = api.resolve_device(device)
         self.ckpt_dir = ckpt_dir

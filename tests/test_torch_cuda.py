@@ -6,7 +6,11 @@ scatter is the backward of each) against the CPU, the single-table
 lookup, the scatter of deduplicated ids and the int8 fused lookup, and
 the pooled block-table and int8-KV decode kernels with the pooled decode
 path of reduced olmo-1b, and the MoE dispatch and engine (reduced
-qwen3-moe and kimi-k2) on the card against the CPU.
+qwen3-moe and kimi-k2) on the card against the CPU; rows 1 and 2 at
+whisper-small's and internvl2-2b's serving shapes (the encoder's
+non-causal wave, cross-attention over 192 and 1500 frames, the VLM's
+1152-row wave), and both reduced models' engines on the card, every layer
+launching the kernels.
 
 Every test needs an sm_90 card and skips elsewhere.  This file imports no
 JAX, so it runs where JAX is not installed:
@@ -118,7 +122,20 @@ DECODE_CASES = ROW1_PINNED_CASES + [
     # window edge and the cache's end
 ] + [((8, 16, 8, 4608, 256, GEMMA2_LENS),
       dict(softcap=50.0, scale=256 ** -0.5, **kw))
-     for kw in (dict(window=4096), dict())]
+     for kw in (dict(window=4096), dict())] + [
+    # whisper-small: 12 heads of 64; its decoder self-attention at
+    # max_len 448 (one shared length, and past the end), its cross-
+    # attention over a static cache of 192 frames and over the published
+    # 30-second encoder length of 1500
+    ((8, 12, 12, 448, 64, [193] * 8), dict()),
+    ((8, 12, 12, 448, 64, [448] * 8), dict()),
+    ((8, 12, 12, 192, 64, [192] * 8), dict()),
+    ((8, 12, 12, 1500, 64, [1500] * 8), dict()),
+    # internvl2-2b: 16 query heads over 8, a prefix of 1024 patch rows
+    # and 128 prompt rows before the decoded ones
+    ((8, 16, 8, 1280, 128, [1152, 1153, 1200, 1279, 1280, 1152, 1160,
+                            1170]), dict()),
+]
 
 
 @pytest.mark.parametrize("shape,kw", DECODE_CASES, ids=str)
@@ -157,6 +174,15 @@ FLASH_CASES = [                             # (B, H, KH, T, S, d), options
                                      scale=256 ** -0.5)),
     ((1, 16, 8, 4480, 4480, 256), dict(window=4096, softcap=50.0,
                                        scale=256 ** -0.5)),
+    # whisper-small's admission wave (slots 8, 12 heads of 64, prompt_len
+    # 192 = S_enc): the encoder's non-causal self-attention, the
+    # decoder's causal one, its cross-attention over those 192 frames and
+    # over the published 30-second encoder length of 1500
+    ((8, 12, 12, 192, 192, 64), dict(causal=False)),
+    ((8, 12, 12, 192, 192, 64), dict()),
+    ((8, 12, 12, 192, 1500, 64), dict(causal=False)),
+    # internvl2-2b's admission wave: 1024 patches + 128 tokens, GQA 2
+    ((8, 16, 8, 1152, 1152, 128), dict()),
 ]
 
 
@@ -1303,3 +1329,32 @@ def test_pooled_decode_invariants_on_card(card):
                                      tables=tables)
     assert torch.equal(torch.cat([one, three]), c_toks)
     assert torch.equal(pool.k, c_pool.k) and torch.equal(pool.v, c_pool.v)
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-2b"])
+def test_whisper_and_vlm_engines_launch_rows_1_and_2(card, arch):
+    """Reduced whisper (the legacy path) and internvl2 (the fast path, a
+    prefix of 8 patches) on the card: 3 requests over 2 slots served to
+    their budgets with in-vocabulary ids, and the kernels launched:
+    whisper 3 row-2 launches a layer (encoder, decoder, cross) of each of
+    its 2 admissions and 2 row-1 launches a decoder layer a step;
+    internvl one row-2 launch a layer of each of its 2 waves and one row-1
+    launch a layer a step."""
+    cfg = registry.get_reduced(arch)
+    spec = SliceSpec(slots=2, max_len=48, prompt_len=16, chunk=4)
+    rng = np.random.default_rng(0)
+    eng = ServeEngine(cfg, api.init_params(cfg, seed=0, device=card), spec,
+                      device=card)
+    reqs = [eng.submit(rng.integers(0, 512, size=n), max_new_tokens=6)
+            for n in (12, 16, 9)]
+    DA.launches = FA.launches = 0
+    stats = eng.run()
+    torch.cuda.synchronize()
+    assert stats["requests_done"] == 3
+    assert all(len(r.out_tokens) == 6
+               and all(0 <= t < 512 for t in r.out_tokens) for r in reqs)
+    wave = (cfg.encoder_layers + 2 * cfg.num_layers
+            if arch == "whisper-small" else cfg.num_layers)
+    assert FA.launches == 2 * wave
+    per_layer = 2 if arch == "whisper-small" else 1
+    assert DA.launches == per_layer * cfg.num_layers * stats["decode_steps"]

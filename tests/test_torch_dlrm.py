@@ -166,9 +166,9 @@ def test_api_family_guards():
     with pytest.raises(NotImplementedError, match="no decoder"):
         TAPI.prefill(tcfg, {}, {})
     dense = TREG.get_reduced("olmo-1b")
-    # the SSM and hybrid families run; the audio family (whisper) waits
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TAPI.forward(dense.replace(family="audio"), {}, {})
+    # every family of the reference runs; an unknown one is refused
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        TAPI.forward(dense.replace(family="no-such-family"), {}, {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TAPI.make_batch(dense, TShape("x", "train", 8, 2), device="cpu")
 

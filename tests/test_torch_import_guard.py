@@ -101,3 +101,17 @@ def test_guard_walks_the_slice_5_module(module):
     path = PKG.joinpath(*module.split(".")[1:])
     assert (path.with_suffix(".py") if path.with_suffix(".py").exists()
             else path / "__init__.py") in SOURCES
+
+
+# the audio and VLM families' modules: the walk above must reach each
+FAMILY_MODULES = [
+    "repro_torch.models.whisper", "repro_torch.configs.whisper_small",
+    "repro_torch.configs.internvl2_2b",
+]
+
+
+@pytest.mark.parametrize("module", FAMILY_MODULES)
+def test_guard_walks_the_family_module(module):
+    assert module in _module_names()
+    path = PKG.joinpath(*module.split(".")[1:]).with_suffix(".py")
+    assert path in SOURCES

@@ -131,5 +131,12 @@ def test_params_from_numpy_turns_the_jax_dlrm_tree():
 
 
 def test_unknown_arch_names_the_roadmap():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        TREG.get_config("internvl2-2b")
+    """Every arch of the reference's registry is the port's, in its order;
+    an arch that neither registry has raises ``KeyError`` naming the known
+    ones."""
+    assert TREG.ARCHS == JREG.ALL_ARCHS
+    for reg in (TREG, JREG):
+        with pytest.raises(KeyError, match="olmo-1b"):
+            reg.get_config("no-such-arch")
+    with pytest.raises(KeyError, match="no-such-arch"):
+        TREG.get_reduced("no-such-arch")
