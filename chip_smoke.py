@@ -327,6 +327,33 @@ each of which fails the run if it fails:
      peak allocated < 72 GB; tokens/s, mean and p95 TTFT, ms a decode
      step and the card's idle share over one profiled chunk
      (``launches_whisper``, ``launches_internvl``).
+ 22. The last four examples' twins, as their users run them (run after
+     phase 21), each through its plain function with its stdout kept:
+     ``launch.topology_explorer`` at ``--chips 512`` and ``--chips 128
+     --search`` (its text the example's, by sha256 of the example's output
+     on the CPU; no tensor made on the card); ``fault_tolerant_training``
+     as the example runs it (``matches clean run: True``, one restart at
+     step 4, losses and final params bitwise the clean run's, the
+     machine's events the reference's kinds); ``serve_lm`` on full-width
+     olmo-1b (seed-0 weights) and on reduced whisper-small (the legacy
+     path, chunk 1) at the example's ``SliceSpec(slots=4, max_len=128,
+     prompt_len=16, chunk=8)`` and 8 requests of 4-11 tokens, counted
+     from just before ``run()``: rows 1 and 2 exactly once a layer a
+     decode step and an admission (whisper: 2 x 2 layers a step, 2 + 2 x 2
+     an admission), every budget met with in-vocabulary ids, olmo's
+     prefill logits finite; ``train_dlrm``'s demo (12 tables over widths
+     16, 8 and 32, B = 256) card vs CPU: one step's gradients on both
+     routes within 2^-5 of each leaf's largest |g|, 5 twin steps from one
+     initial state within 1e-3 + 2^-7 |loss|; then 150 twin steps fused
+     and 150 ``--pergroup`` (checkpoints every 50, inside the loop, as the
+     example), counted: rows 4 and 5 once a step fused, row 6 once a table
+     and row 5 once a row space a step per-table, the loss improved;
+     ``--scale full`` raises naming item 12 with nothing allocated.  Each
+     kernel the twins launched is then held against its plain version on
+     the inputs of its first call at each shape the twins gave it (rows 1,
+     2, 4 and 6 within their bars, row 5 bitwise under deterministic
+     algorithms) (``launches_serve_lm``, ``launches_serve_lm_whisper``,
+     ``launches_train_dlrm``, ``launches_train_dlrm_pergroup``).
 
 Prints, last: a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and
@@ -337,6 +364,7 @@ import argparse
 import contextlib
 import gc
 import hashlib
+import io
 import json
 import math
 import subprocess
@@ -2144,14 +2172,14 @@ def scatter_kernel_phase(torch, cfg, coll, Dataset, ShapeConfig, FS, REF, B,
 
 def dlrm_train_reference_phase(torch, registry, api, ShapeConfig,
                                ParallelConfig, OptimizerConfig, STEPS, OPT,
-                               FS, EG, dev="cuda"):
-    """Reduced dlrm0, same weights and batch: one step's gradients on the
-    CPU (plain versions) and on the card (kernels), through both lookup
-    routes, the per-table one also against the fused one; then Adam on the
-    same gradients."""
-    cfg = registry.get_reduced("dlrm0")
+                               FS, EG, dev="cuda", cfg=None, batch=64):
+    """Reduced dlrm0 (or ``cfg``), same weights and a batch of ``batch``:
+    one step's gradients on the CPU (plain versions) and on the card
+    (kernels), through both lookup routes, the per-table one also against
+    the fused one; then Adam on the same gradients."""
+    cfg = cfg or registry.get_reduced("dlrm0")
     p_cpu = api.init_params(cfg, seed=0, device="cpu")
-    b_cpu = api.make_batch(cfg, ShapeConfig("dlrm_check", "train", 1, 64),
+    b_cpu = api.make_batch(cfg, ShapeConfig("dlrm_check", "train", 1, batch),
                            seed=1, device="cpu")
     p_gpu, b_gpu = _to(p_cpu, dev), _to(b_cpu, dev)
     pcfg = ParallelConfig(remat="none")
@@ -5116,6 +5144,327 @@ def audio_vlm_phase(torch, np, F, registry, api, engine_mod, DA, FA, REF,
     return out, launches
 
 
+# Phase 22: the twins of examples/topology_explorer.py,
+# fault_tolerant_training.py, serve_lm.py and train_dlrm.py.  The
+# explorer's text is the example's: sha256 of the example's stdout
+# (``python examples/topology_explorer.py <args>`` on the CPU)
+TOPOLOGY_SHA256 = {
+    ("--chips", "512"):
+        "1ed00a77a6e06b5cbcaf78458f3733f8e703df73dfe54902d76b06ac7b5ea0a6",
+    ("--chips", "128", "--search"):
+        "b481e528b90b204bd320b1efd1ea1833918286a08c575fb529b206af2ddc6733",
+}
+EXAMPLE_SERVE_REQUESTS = 8
+EXAMPLE_NEW_TOKENS = 16
+EXAMPLE_DLRM_STEPS = 150
+EXAMPLE_CHECK_STEPS = 5
+
+
+def _captured(fn, *a, **k):
+    """(``fn(*a, **k)``, what it printed): the twins print their reports,
+    which must not reach this script's last lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*a, **k)
+    return res, buf.getvalue()
+
+
+@contextlib.contextmanager
+def first_calls(torch, module, name):
+    """``module.name`` passed through while a detached copy of the inputs
+    of its first call at each distinct signature (shapes, dtypes, options)
+    is kept in the yielded dict.  The wrapper itself still counts its
+    launches; this adds none."""
+    fn = getattr(module, name)
+    seen = {}
+
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().clone()
+        if isinstance(x, (list, tuple)):
+            return type(x)(copy(v) for v in x)
+        return x
+
+    def sig(x):
+        if isinstance(x, torch.Tensor):
+            return (tuple(x.shape), str(x.dtype))
+        if isinstance(x, (list, tuple)):
+            return tuple(sig(v) for v in x)
+        return x
+
+    def spy(*a, **k):
+        key = sig((a, tuple(sorted(k.items()))))
+        if key not in seen:
+            seen[key] = (copy(a), copy(k))
+        return fn(*a, **k)
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def hold_first_calls(torch, calls, kernel, plain, what, **tol):
+    """Each recorded call's inputs through ``kernel`` and ``plain``: within
+    `max_err`'s bars (``tol``), or bitwise under deterministic algorithms
+    when ``tol`` is {"bitwise": True}.  Returns (worst error, shapes)."""
+    worst, shapes = 0.0, []
+    for key, (a, k) in calls.items():
+        label = f"{what} at {key}"
+        with torch.no_grad():
+            if tol.get("bitwise"):
+                got = kernel(*a, **k)
+                with deterministic(torch):
+                    want = plain(*a, **k)
+                err = scatter_bitwise(torch, got, want, label)
+            else:
+                err = max_err(torch, kernel(*a, **k), plain(*a, **k), label,
+                              **tol)
+        worst = max(worst, err)
+        shapes.append(repr(key))
+    check(calls, f"{what}: never called")
+    return worst, shapes
+
+
+def topology_twin_phase(torch, TE, dev="cuda"):
+    """The explorer twin at each of TOPOLOGY_SHA256's arguments: its text
+    the example's; host analytics only (no allocation on the card)."""
+    out = {}
+    for argv, want in TOPOLOGY_SHA256.items():
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        _, text = _captured(TE.main, [*argv, "--device", dev])
+        got = hashlib.sha256(text.encode()).hexdigest()
+        check(got == want, f"topology_explorer {' '.join(argv)}: its text "
+                           f"is not the example's:\n{text}")
+        check(torch.cuda.memory_allocated() == before,
+              f"topology_explorer {' '.join(argv)} allocated on the card")
+        out[" ".join(argv)] = dict(s=time.perf_counter() - t0,
+                                   lines=len(text.splitlines()), sha256=got)
+    return out
+
+
+def drill_twin_phase(torch, FT, OPT, dev="cuda"):
+    """fault_tolerant_training as the example runs it: the report says
+    the faulted run matches, one restart at step 4, losses and final
+    params bitwise the clean run's, the machine's event kinds."""
+    t0 = time.perf_counter()
+    (sc, sess, ref), text = _captured(FT.main, ["--device", dev])
+    s = time.perf_counter() - t0
+    check("matches clean run: True" in text and "restarts:          1"
+          in text and "steps run:         12" in text,
+          f"fault_tolerant_training:\n{text}")
+    check([m["step"] for m in sess.metrics_log if m.get("event")] == [4],
+          "fault_tolerant_training: not one restart at step 4")
+    check(_losses(sess) == _losses(ref) and len(_losses(ref)) == 12,
+          f"fault_tolerant_training: losses {_losses(sess)} are not the "
+          f"clean run's {_losses(ref)} bit for bit")
+    check(all(torch.equal(a, b) for a, b in zip(
+        OPT.leaves(sess.params), OPT.leaves(ref.params))),
+          "fault_tolerant_training: final params differ from the clean "
+          "run's")
+    kinds = [e.split()[0] for e in sc.events]
+    check(kinds == ["alloc", "alloc", "fail", "release", "release"],
+          f"fault_tolerant_training: machine events {sc.events}")
+    return dict(s=s, events=list(sc.events),
+                losses=[_losses(sess)[k] for k in sorted(_losses(sess))],
+                report=text.splitlines()[-4:])
+
+
+def serve_twin_phase(torch, np, SL, api, cfg, arch, DA, FA, dev="cuda"):
+    """serve_lm's function on ``cfg`` (weights from seed 0) at the
+    example's spec and EXAMPLE_SERVE_REQUESTS, counted from just before
+    ``run()`` (the submits launch nothing): every budget of
+    in-vocabulary ids; rows 1 and 2 exactly once a layer a decode step and
+    an admission (whisper: self and cross a step; encoder, decoder and
+    cross an admission).  Returns (results, launches, recorded calls)."""
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, device=dev)
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    spec = SL.example_spec()
+    DA.launches = FA.launches = 0
+    with first_calls(torch, DA, "paged_decode_attention") as dcalls, \
+            first_calls(torch, FA, "flash_attention") as pcalls:
+        (stats, sess), text = _captured(
+            SL.serve_lm, arch, cfg, params, spec,
+            requests=EXAMPLE_SERVE_REQUESTS, new_tokens=EXAMPLE_NEW_TOKENS,
+            device=dev)
+    launches = {"paged_decode_attention": DA.launches,
+                "flash_attention": FA.launches}
+    reqs = sess.engine.queue
+    check(stats["requests_done"] == EXAMPLE_SERVE_REQUESTS == len(reqs),
+          f"serve_lm {arch}: served {stats['requests_done']}")
+    for r in reqs:
+        check(len(r.out_tokens) == EXAMPLE_NEW_TOKENS
+              and all(0 <= t < cfg.vocab_size for t in r.out_tokens),
+              f"serve_lm {arch}: request {r.rid} has {r.out_tokens}")
+    audio = cfg.family == "audio"
+    per_wave = (cfg.encoder_layers + 2 * cfg.num_layers if audio
+                else cfg.num_layers)
+    per_step = 2 * cfg.num_layers if audio else cfg.num_layers
+    waves = math.ceil(EXAMPLE_SERVE_REQUESTS / spec.slots)
+    check(stats["chunk"] == (1 if audio else spec.chunk),
+          f"serve_lm {arch}: chunk {stats['chunk']}")
+    check(launches["flash_attention"] == per_wave * waves
+          and launches["paged_decode_attention"]
+          == per_step * stats["decode_steps"],
+          f"serve_lm {arch}: launches {launches} for "
+          f"{stats['decode_steps']} steps and {waves} admissions: not "
+          f"{per_wave} row-2 launches an admission and {per_step} row-1 "
+          f"launches a step")
+    if not audio:
+        toks = torch.as_tensor(np.stack([r.prompt[-4:] for r in reqs[:2]]),
+                               device=dev).long()
+        logits, _ = api.prefill(cfg, params, {"tokens": toks})
+        check(tuple(logits.shape) == (2, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"serve_lm {arch}: prefill logits not finite")
+    out = {k: stats[k] for k in ("requests_done", "tokens", "wall_s",
+                                 "tokens_per_s", "mean_ttft_s",
+                                 "p95_ttft_s", "decode_steps", "chunk",
+                                 "p50_chunk_s")}
+    out.update(init_s=init_s, launches=launches, admissions=waves,
+               row2_per_admission=per_wave, row1_per_step=per_step,
+               report=text.splitlines()[-3:])
+    return out, launches, (dcalls, pcalls)
+
+
+def dlrm_twin_phase(torch, TD, api, OPT, TrainerState, FL, EG, FS,
+                    dev="cuda"):
+    """train_dlrm's demo: 5 twin steps on the card and on the CPU from one
+    initial state, both routes; then EXAMPLE_DLRM_STEPS twin steps fused
+    and per-table, counted, each improving its loss.  Returns (results,
+    launches by route, recorded calls)."""
+    cfg = TD.demo_config()
+    out, launches, calls = {}, {}, {}
+    for pergroup in (False, True):
+        route = "pergroup" if pergroup else "fused"
+        run = TD.example_run(cfg, pergroup=pergroup)
+        # card vs CPU: the twin from one initial state, 5 steps
+        p_cpu = api.init_params(cfg, seed=run.seed, device="cpu")
+        losses = {}
+        for d, p in (("cpu", p_cpu), (dev, _to(p_cpu, dev))):
+            sess, _ = _captured(TD.train_dlrm, run, EXAMPLE_CHECK_STEPS, d,
+                                state=TrainerState(
+                                    p, OPT.init(run.optimizer, p), 0),
+                                log_every=1)
+            losses[d] = [m["loss"] for m in sess.metrics_log if "loss" in m]
+        want, got = losses["cpu"], losses[dev]
+        check(len(got) == len(want) == EXAMPLE_CHECK_STEPS and all(
+            abs(g - w) <= 1e-3 + 2.0 ** -7 * abs(w)
+            for g, w in zip(got, want)),
+            f"train_dlrm {route}: card losses {got} vs CPU {want}")
+        # the example's run, counted
+        FL.launches = EG.launches = FS.launches = 0
+        t0 = time.perf_counter()
+        with first_calls(torch, FL, "fused_lookup") as lcalls, \
+                first_calls(torch, EG, "embedding_gather") as gcalls, \
+                first_calls(torch, FS, "fused_scatter") as scalls:
+            sess, text = _captured(
+                TD.main, ["--steps", str(EXAMPLE_DLRM_STEPS), "--device",
+                          dev] + ["--pergroup"] * pergroup)
+            _sync(torch, dev)
+        s = time.perf_counter() - t0
+        launches[route] = {"fused_lookup": FL.launches,
+                           "embedding_gather": EG.launches,
+                           "fused_scatter": FS.launches}
+        n = EXAMPLE_DLRM_STEPS
+        spaces = len(sess.params["tables"])
+        want_l = ({"fused_lookup": 0, "embedding_gather": n * len(
+            cfg.dlrm.tables), "fused_scatter": n * spaces} if pergroup else
+                  {"fused_lookup": n, "embedding_gather": 0,
+                   "fused_scatter": n})
+        check(launches[route] == want_l, f"train_dlrm {route}: launches "
+                                         f"{launches[route]}, want {want_l}")
+        curve = [m["loss"] for m in sess.metrics_log if "loss" in m]
+        check(all(math.isfinite(x) for x in curve) and curve[-1] < curve[0]
+              and "(improved)" in text,
+              f"train_dlrm {route}: the loss did not improve:\n{text}")
+        out[route] = dict(s=s, ms_per_step=s / n * 1e3, steps=n,
+                          losses=curve, card_vs_cpu=[got, want],
+                          launches=launches[route],
+                          report=text.splitlines()[-1])
+        calls[route] = (lcalls, gcalls, scalls)
+    before = torch.cuda.memory_allocated()
+    try:
+        TD.main(["--scale", "full", "--device", dev])
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    check("ROADMAP.md queue 1, item 12" in raised
+          and torch.cuda.memory_allocated() == before,
+          f"train_dlrm --scale full: raised {raised!r}, allocated "
+          f"{torch.cuda.memory_allocated() - before} bytes")
+    out["scale_full"] = raised
+    return out, launches, calls
+
+
+def examples_phase(torch, np, registry, api, DA, FA, FL, EG, FS, REF, STEPS,
+                   OPT, TrainerState, ShapeConfig, ParallelConfig,
+                   OptimizerConfig, dev="cuda"):
+    """Phase 22: the twins of the last four examples.  Returns (results,
+    {name: launches})."""
+    from repro_torch.launch import fault_tolerant_training as FT
+    from repro_torch.launch import serve_lm as SL
+    from repro_torch.launch import topology_explorer as TE
+    from repro_torch.launch import train_dlrm as TD
+    t_phase = time.perf_counter()
+    out = {"topology_explorer": topology_twin_phase(torch, TE, dev)}
+    out["fault_tolerant_training"] = drill_twin_phase(torch, FT, OPT, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, recorded = {}, {}
+    for name, cfg, arch in (
+            ("serve_lm", registry.get_config("olmo-1b"), "olmo-1b"),
+            ("serve_lm_whisper", registry.get_reduced(WHISPER_ARCH),
+             WHISPER_ARCH)):
+        out[name], launches[name], recorded[name] = serve_twin_phase(
+            torch, np, SL, api, cfg, arch, DA, FA, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # rows 4, 5 and 6 at the demo's shapes through the whole model
+    demo = TD.demo_config()
+    worst, _ = dlrm_train_reference_phase(
+        torch, registry, api, ShapeConfig, ParallelConfig, OptimizerConfig,
+        STEPS, OPT, FS, EG, dev, cfg=demo, batch=256)
+    out["train_dlrm_reference_worst"] = worst
+    out["train_dlrm"], dlrm_launches, dlrm_calls = dlrm_twin_phase(
+        torch, TD, api, OPT, TrainerState, FL, EG, FS, dev)
+    launches["train_dlrm"] = dlrm_launches["fused"]
+    launches["train_dlrm_pergroup"] = dlrm_launches["pergroup"]
+    held = {}
+    for name, (dcalls, pcalls) in recorded.items():
+        held[f"{name}:paged_decode_attention"] = hold_first_calls(
+            torch, dcalls, DA.paged_decode_attention,
+            REF.paged_decode_attention_ref, f"{name} row 1")
+        held[f"{name}:flash_attention"] = hold_first_calls(
+            torch, pcalls, FA.flash_attention, REF.flash_attention_ref,
+            f"{name} row 2")
+    lcalls, _, scalls = dlrm_calls["fused"]
+    _, gcalls, pscalls = dlrm_calls["pergroup"]
+    held["train_dlrm:fused_lookup"] = hold_first_calls(
+        torch, lcalls, FL.fused_lookup, REF.fused_lookup_ref,
+        "train_dlrm row 4", atol=EMB_ATOL, rtol=EMB_RTOL)
+    held["train_dlrm_pergroup:embedding_gather"] = hold_first_calls(
+        torch, gcalls, EG.embedding_gather, REF.embedding_gather_ref,
+        "train_dlrm row 6", atol=0.0, rtol=0.0)
+
+    def scatter_plain(gout, rows, slots, col_slot, shapes):
+        return REF.fused_scatter_ref(gout, rows, slots, shapes, col_slot)
+
+    for name, c in (("train_dlrm", scalls), ("train_dlrm_pergroup",
+                                             pscalls)):
+        held[f"{name}:fused_scatter"] = hold_first_calls(
+            torch, c, FS.fused_scatter, scatter_plain, f"{name} row 5",
+            bitwise=True)
+    out["held"] = {k: {"max_abs_err": v[0], "shapes": v[1]}
+                   for k, v in held.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5238,6 +5587,12 @@ def main(argv=None):
     audio_vlm, audio_vlm_launches = audio_vlm_phase(
         torch, np, F, registry, api, engine_mod, DA, FA, REF, TF)
     log("whisper and internvl:", json.dumps(audio_vlm))
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples, examples_launches = examples_phase(
+        torch, np, registry, api, DA, FA, FL, EG, FS, REF, STEPS, OPT,
+        TrainerState, ShapeConfig, ParallelConfig, OptimizerConfig)
+    log("examples' twins:", json.dumps(examples))
     gc.collect()
     torch.cuda.empty_cache()
     stats, launches = serve_phase(torch, np, registry.get_config("olmo-1b"),
@@ -5412,12 +5767,25 @@ def main(argv=None):
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=None,
         sdpa_no_softcap_ms=k["sdpa_no_softcap_ms"]))
+    # the serve_lm twin: full-width olmo-1b and reduced whisper-small
+    for name in ("serve_lm", "serve_lm_whisper"):
+        decode[f"launches_{name}"] = examples_launches[name][
+            "paged_decode_attention"]
+        prefill[f"launches_{name}"] = examples_launches[name][
+            "flash_attention"]
     fused, gather = (dlrm_kern[DLRM_BATCH][n]
                      for n in ("fused_lookup", "embedding_gather"))
     fused["launches"] = dlrm_launches["fused_lookup"]
     gather["launches"] = dlrm_launches["embedding_gather"]
     scat = scatter[TRAIN_BATCH]
     scat["launches"] = train_launches["fused_scatter"]
+    # the train_dlrm twin's demo, fused and per-table
+    fused["launches_train_dlrm"] = examples_launches["train_dlrm"][
+        "fused_lookup"]
+    gather["launches_train_dlrm_pergroup"] = examples_launches[
+        "train_dlrm_pergroup"]["embedding_gather"]
+    for name in ("train_dlrm", "train_dlrm_pergroup"):
+        scat[f"launches_{name}"] = examples_launches[name]["fused_scatter"]
     # the fused scatter's key and hot-run kernels, one each a run kernel
     scat["launches_hot"] = train_launches["fused_scatter_hot"]
     scat["launches_keys"] = train_launches["fused_scatter_keys"]
@@ -5432,7 +5800,9 @@ def main(argv=None):
             "launches_fleet", "launches_mixed", "launches_moe",
             "launches_moe_trained", "launches_hymba",
             "launches_hymba_trained", "launches_qwen2", "launches_nemo",
-            "launches_gemma2", "launches_whisper", "launches_internvl")
+            "launches_gemma2", "launches_whisper", "launches_internvl",
+            "launches_serve_lm", "launches_serve_lm_whisper",
+            "launches_train_dlrm", "launches_train_dlrm_pergroup")
     extra = ("ms_global", "sdpa_no_softcap_ms")
     kernels = {"kernels": [{k: kern[k] for k in keys}
                            | {k: kern[k] for k in more + extra if k in kern}
@@ -5463,8 +5833,11 @@ def main(argv=None):
                  dense_training=dense, fault_drill=drill,
                  fleet=fleet, mixed_tenancy=mixed, moe=moe,
                  moe_training=moe_train, ssm=ssm, ssm_training=ssm_train,
-                 dense_variants=dense_var, audio_vlm=audio_vlm, **kernels),
+                 dense_variants=dense_var, audio_vlm=audio_vlm,
+                 examples=examples, script_s=time.perf_counter() - _T0,
+                 **kernels),
             indent=2))
+    log(f"script: {time.perf_counter() - _T0:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -92,6 +92,9 @@ SLICE_5_MODULES = [
     "repro_torch.fleet.service", "repro_torch.fleet.traffic",
     "repro_torch.cluster.registry", "repro_torch.cluster.tenancy",
     "repro_torch.launch.serve_fleet", "repro_torch.launch.mixed_cluster",
+    "repro_torch.launch.topology_explorer",
+    "repro_torch.launch.fault_tolerant_training",
+    "repro_torch.launch.serve_lm", "repro_torch.launch.train_dlrm",
 ]
 
 
