@@ -354,6 +354,31 @@ each of which fails the run if it fails:
      2, 4 and 6 within their bars, row 5 bitwise under deterministic
      algorithms) (``launches_serve_lm``, ``launches_serve_lm_whisper``,
      ``launches_train_dlrm``, ``launches_train_dlrm_pergroup``).
+ 23. dlrm0's tables sharded over ranks (run after phase 22): 4 ranks on a
+     (2, 2) (data, model) grid, each a process of its own (this script
+     with ``--sharded-rank``; the kernel library built before they
+     start), NCCL with one rank a card where 4 cards exist, else gloo
+     with every tensor on the one card, staged through pinned host
+     buffers (the backend is printed); process groups with a timeout, so
+     a hung collective fails its rank, and a failed or late rank fails
+     the phase.  dlrm0 with its 150 tables at their published dims,
+     valencies and combiners, vocabularies cut to 1e9 table parameters
+     (4.0 GB of f32; a rank holds half of every row space), global batch
+     256 (64 a rank), a2a capacity factor 0.75 (no id dropped, checked).
+     Each rank: its shards drawn as the one-device init draws the whole;
+     the pipelined a2a lookup bitwise the per-group one, psum within
+     EMB_ATOL of it; the hot-id cache through the executor (a step, then
+     the next batch observed: hit rate), the cached lookup bitwise the
+     uncached one, gradients too; then the main path, counted: 3
+     ``make_train_step`` steps over the grid (ms a step, bytes sent a
+     step, peak memory); rows 6, 4 and 5 exactly once, once and twice a
+     width-group a step, and rank 0 holds each against its plain version
+     on its first inputs at each shape.  Then against one device from the
+     same state, accumulating over the same four pieces of the batch in
+     rank order: the a2a outputs of the global batch within EMB_ATOL of
+     the one-device lookup (``method="local"``) of the whole tables, each
+     shard's first gradient within 2^-5 of its leaf's largest |g|, the 3
+     losses within 1e-3 + 2^-7 |loss| (``launches_sharded_dlrm``).
 
 Prints, last: a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and
@@ -5205,6 +5230,32 @@ def first_calls(torch, module, name):
         setattr(module, name, fn)
 
 
+@contextlib.contextmanager
+def _passed(torch, module, name):
+    """`first_calls`' stand-in that keeps nothing."""
+    yield {}
+
+
+@contextlib.contextmanager
+def first_grads(torch, OPT):
+    """``OPT.apply`` passed through while a copy of the gradients of its
+    first call, as the optimizer receives them (before the clip scales
+    them in place), is kept in the yielded list."""
+    fn = OPT.apply
+    kept = []
+
+    def spy(cfg, params, grads, *a, **k):
+        if not kept:
+            kept.extend(g.detach().clone() for g in OPT.leaves(grads))
+        return fn(cfg, params, grads, *a, **k)
+
+    OPT.apply = spy
+    try:
+        yield kept
+    finally:
+        OPT.apply = fn
+
+
 def hold_first_calls(torch, calls, kernel, plain, what, **tol):
     """Each recorded call's inputs through ``kernel`` and ``plain``: within
     `max_err`'s bars (``tol``), or bitwise under deterministic algorithms
@@ -5465,6 +5516,440 @@ def examples_phase(torch, np, registry, api, DA, FA, FL, EG, FS, REF, STEPS,
     return out, launches
 
 
+SHARD_TABLE_PARAMS = 1_000_000_000   # 4.0 GB of f32 tables, 2.0 a model rank
+SHARD_MESH = (2, 2)                  # (data, model) ranks
+SHARD_AXES = ("data", "model")
+SHARD_STEPS = 3
+# the reference sizes an a2a destination's slots from the GLOBAL batch (C =
+# N / model x factor): its default 2.0 is 8x what a rank of this 2 x 2
+# grid sends a destination; 0.75 leaves >= 1.5x over the largest demand
+# of these batches (checked: no id is dropped)
+SHARD_CAPACITY_FACTOR = 0.75
+# hot rows a width-group: the LFU (the reference's, on the host) walks up
+# to 8x this many counts once a table a step
+SHARD_CACHE_ROWS = 4096
+SHARD_GROUP_TIMEOUT_S = 240          # a collective that hangs fails its rank
+SHARD_PHASE_LIMIT_S = 420            # the parent's wait for every rank
+SHARD_OPTIMIZER = dict(lr=3e-4, warmup_steps=20)   # train_dlrm's Adam
+
+
+def relayout(torch, src, dst, tables):
+    """Whole row spaces of collection ``src``'s layout -> ``dst``'s: the
+    same tables' rows copied where ``dst`` keeps them, padding rows 0."""
+    where = {}
+    for g in list(src.groups.values()) + list(src.local_groups.values()):
+        for sl in g.slots:
+            where[sl.spec.name] = (g.name, sl.offset)
+    out = {}
+    for g in list(dst.groups.values()) + list(dst.local_groups.values()):
+        like = next(iter(tables.values()))
+        t = torch.zeros((g.total_rows, g.dim), dtype=like.dtype,
+                        device=like.device)
+        for sl in g.slots:
+            name, off = where[sl.spec.name]
+            n = sl.spec.vocab_size
+            t[sl.offset:sl.offset + n] = tables[name][off:off + n]
+        out[g.name] = t
+    return out
+
+
+def a2a_headroom(np, ENG, coll, batch, ctx, cf):
+    """(most unique ids this rank sends one owner, the owner's slots C) for
+    each a2a group of ``coll``, this rank's samples of the global
+    ``batch`` (numpy); fails where C is short, since a dropped id would
+    read back as a zero vector."""
+    ms = ctx.model_axis_size
+    rows = ctx.local_rows(len(batch["labels"]))
+    worst = []
+    for dim, g in sorted(coll.groups.items()):
+        ids = np.concatenate([np.where(batch[f"cat_{sl.spec.name}"] >= 0,
+                                       batch[f"cat_{sl.spec.name}"]
+                                       + sl.offset, -1) for sl in g.slots],
+                             axis=1)
+        C = ENG._a2a_capacity(ids.size, ms, cf)
+        loc = ids[rows].reshape(-1)
+        u = np.unique(loc[loc >= 0])
+        most = int(np.bincount(u // (g.total_rows // ms), minlength=ms).max())
+        check(most <= C, f"{g.name}: a rank sends {most} ids to one owner, "
+                         f"over its {C} slots")
+        worst.append((most, C))
+    return worst
+
+
+def sharded_rank(rank, workdir, backend, dev_kind="cuda",
+                 table_params=SHARD_TABLE_PARAMS, batch=DLRM_CHIP_BATCH):
+    """One rank of phase 23 (a process of its own; see the module doc).
+    Writes ``rank{rank}.json`` in ``workdir``; raises on any failed
+    check, so the rank exits non-zero."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import (OptimizerConfig, ParallelConfig,
+                                          ShapeConfig)
+    from repro_torch.data.synthetic import Dataset
+    from repro_torch.embeddings import engine as ENG
+    from repro_torch.embeddings.cache import HotIdCache
+    from repro_torch.kernels import build
+    from repro_torch.kernels import embedding_gather as EG
+    from repro_torch.kernels import fused_lookup as FL
+    from repro_torch.kernels import fused_scatter as FS
+    from repro_torch.kernels import ref as REF
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import dlrm as DL
+    from repro_torch.optim import adam as OPT
+    from repro_torch.parallel import context as PC
+
+    t_start = time.perf_counter()
+    world = SHARD_MESH[0] * SHARD_MESH[1]
+    card = dev_kind == "cuda"
+    if card:
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.library()                 # built by the parent
+    else:
+        dev = torch.device("cpu")
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def close(got, want, what, atol=EMB_ATOL, rtol=EMB_RTOL):
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"rank {rank}: {what}: shape or non-finite")
+        err = (got.float() - want.float()).abs()
+        check(bool((err <= atol + rtol * want.float().abs()).all()),
+              f"rank {rank}: {what}: max |diff| {err.max().item():.3e}")
+        return err.max().item()
+
+    timeout = datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S)
+    dist.init_process_group(backend, store=dist.FileStore(
+        str(Path(workdir) / "store"), world), rank=rank, world_size=world,
+        timeout=timeout)
+    ctx = PC.ParallelContext(mesh=make_mesh(SHARD_MESH, SHARD_AXES,
+                                            timeout=timeout),
+                             emb_capacity_factor=SHARD_CAPACITY_FACTOR)
+    d_idx, m_idx = ctx.axis_index("data"), ctx.axis_index("model")
+    out = dict(rank=rank, backend=backend, device=str(dev),
+               coord=[d_idx, m_idx], start_s=time.perf_counter() - t_start)
+    cfg = dlrm0_cut(registry, table_params)
+    ms = ctx.model_axis_size
+    coll = DL.collection_for(cfg, ms)
+    names = [t.name for t in cfg.dlrm.tables]
+    check(all(g.total_rows % ms == 0 for g in coll.groups.values()),
+          "row spaces do not split over the model axis")
+
+    # this rank's shards: each whole row space drawn on the card as the
+    # one-device init draws it, this rank's rows kept
+    t0 = time.perf_counter()
+    p = DL.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev, ctx=ctx)
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    check(all(t.device == dev for t in OPT.leaves(p)),
+          f"rank {rank}: a param is off {dev}")
+    shape = ShapeConfig("dlrm_sharded", "train", 1, batch)
+    data = Dataset(cfg, shape)
+    host = [data.batch(s) for s in range(SHARD_STEPS)]
+    rows = ctx.local_rows(batch)
+
+    def on(b, sl=slice(None)):
+        return {k: torch.from_numpy(np.ascontiguousarray(v[sl])).to(dev)
+                for k, v in b.items()}
+
+    mine = [on(b, rows) for b in host]
+    out["a2a_headroom"] = a2a_headroom(np, ENG, coll, host[0], ctx,
+                                       SHARD_CAPACITY_FACTOR)
+    out["batches_s"] = time.perf_counter() - t_start
+
+    def feats(b):
+        return {n: b[f"cat_{n}"] for n in names}
+
+    def cat(o):
+        return torch.cat([o[n] for n in names], dim=1)
+
+    def sq_grads(lookup):
+        tabs = {k: v.detach().requires_grad_(True)
+                for k, v in p["tables"].items()}
+        o = lookup(tabs)
+        sum((v ** 2).sum() for v in o.values()).backward()
+        return ({n: v.detach() for n, v in o.items()},
+                {k: v.grad for k, v in tabs.items()})
+
+    # lookups: the pipelined a2a (with a gradient of the sum of squares,
+    # for the cache below) = per-group bitwise; psum within EMB_ATOL
+    t0 = time.perf_counter()
+    a2a, g_plain = sq_grads(lambda t: coll.lookup(
+        t, feats(mine[0]), ctx, method="a2a"))
+    sync()
+    out["a2a_lookup_with_backward_s"] = time.perf_counter() - t0
+    with torch.no_grad():
+        per = coll.lookup(p["tables"], feats(mine[0]), ctx, method="a2a",
+                          fused=False)
+        psum = coll.lookup(p["tables"], feats(mine[0]), ctx, method="psum")
+    check(all(a2a[n].device == dev for n in names),
+          f"rank {rank}: a lookup left {dev}")
+    check(all(torch.equal(a2a[n], per[n]) for n in names),
+          f"rank {rank}: pipelined a2a is not bitwise the per-group a2a")
+    out["psum_vs_a2a"] = close(cat(psum), cat(a2a), "psum vs a2a")
+    every = ctx.all_gather(cat(a2a))          # the global batch's, in order
+    del per, psum
+    out["lookups_s"] = time.perf_counter() - t_start
+
+    # the hot-id cache: the executor's step on batch 0, batch 1 observed
+    # against that snapshot; cached = uncached bitwise, gradients too
+    ex = ENG.PipelinedEmbeddingExecutor(
+        coll, cache=HotIdCache(capacity=SHARD_CACHE_ROWS), method="a2a")
+    ex.step(p["tables"], feats(mine[0]), ctx)
+    h0, l0 = ex.cache.hits, ex.cache.lookups
+    ex.observe(feats(mine[1]), ctx)
+    out["cache_hit_rate_next_batch"] = ((ex.cache.hits - h0)
+                                        / max(ex.cache.lookups - l0, 1.0))
+    out["cache_hit_rate"] = ex.cache.hit_rate
+    o_cached, g_cached = sq_grads(lambda t: ex.lookup(
+        t, feats(mine[0]), ctx))
+    check(all(torch.equal(o_cached[n], a2a[n]) for n in names),
+          f"rank {rank}: the cached lookup is not bitwise the uncached")
+    check(all(torch.equal(g_cached[k], g_plain[k]) for k in g_plain),
+          f"rank {rank}: the cached lookup's gradient is not bitwise the "
+          f"uncached one's")
+    del g_plain, o_cached, g_cached, ex
+    out["checks_s"] = time.perf_counter() - t_start
+
+    # the main path, counted: SHARD_STEPS train steps over the grid; the
+    # first step's gradient is kept as Adam receives it
+    pcfg = ParallelConfig(remat="none")
+    ocfg = OptimizerConfig(**SHARD_OPTIMIZER)
+    step = STEPS.make_train_step(cfg, shape, pcfg, ocfg, ctx)
+    state = OPT.init(ocfg, p)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    EG.launches = FS.launches = FL.launches = 0
+    losses, step_ms, step_bytes = [], [], []
+    # rank 0 keeps each kernel's first inputs at each shape, to hold them
+    spy = first_calls if rank == 0 else _passed
+    with spy(torch, EG, "embedding_gather") as gcalls, \
+            spy(torch, FS, "fused_scatter") as scalls, \
+            spy(torch, FL, "fused_lookup") as lcalls, \
+            first_grads(torch, OPT) as g_sh:
+        for b in mine:
+            sync()
+            t0, w0 = time.perf_counter(), PC.wire_bytes
+            p, state, m = step(p, state, b)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_bytes.append(PC.wire_bytes - w0)
+            losses.append(float(m["loss"]))
+    launches = {"embedding_gather": EG.launches,
+                "fused_scatter": FS.launches, "fused_lookup": FL.launches}
+    out.update(losses=losses, step_ms=step_ms, step_wire_bytes=step_bytes,
+               launches=launches)
+    # a step: each a2a group (every group's valency is > 4) one owner
+    # gather (row 6) and one combine of the received vectors (row 4),
+    # each with its scatter (row 5); the replicated spaces, if any, one
+    # fused lookup and its scatter
+    n_a2a = len(coll.groups)
+    n_rep = int(bool(coll.replicated))
+    want_l = {"embedding_gather": SHARD_STEPS * n_a2a,
+              "fused_scatter": SHARD_STEPS * (2 * n_a2a + n_rep),
+              "fused_lookup": SHARD_STEPS * (n_a2a + n_rep)}
+    if card:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        check(launches == want_l, f"rank {rank}: launches {launches}, want "
+                                  f"{want_l}")
+    check(all(math.isfinite(x) for x in losses),
+          f"rank {rank}: losses {losses}")
+    check(all(t.device == dev for t in OPT.leaves(p)),
+          f"rank {rank}: a param left {dev}")
+    leaves = [path for path, _ in _named_leaves(p)]
+    del p, state, step
+    if card and rank == 0:
+        torch.cuda.empty_cache()
+        held = {"embedding_gather": hold_first_calls(
+            torch, gcalls, EG.embedding_gather, REF.embedding_gather_ref,
+            "phase 23 row 6", atol=0.0, rtol=0.0)}
+
+        def scatter_plain(gout, rws, slots, col_slot, shapes):
+            return REF.fused_scatter_ref(gout, rws, slots, shapes, col_slot)
+        held["fused_scatter"] = hold_first_calls(
+            torch, scalls, FS.fused_scatter, scatter_plain,
+            "phase 23 row 5", bitwise=True)
+        held["fused_lookup"] = hold_first_calls(
+            torch, lcalls, FL.fused_lookup, REF.fused_lookup_ref,
+            "phase 23 row 4", atol=EMB_ATOL, rtol=EMB_RTOL)
+        out["held"] = {k: {"max_abs_err": v[0], "shapes": len(v[1])}
+                       for k, v in held.items()}
+    del gcalls, scalls, lcalls
+
+    out["main_path_s"] = time.perf_counter() - t_start
+    t_one = time.perf_counter()
+    # against one device, from the same state: the ranks of data row 0
+    # hold the two model shards between them, and each draws the whole
+    # tables to hold its own shard's first gradient.  One device
+    # accumulates over the same pieces of the batch in rank order
+    # (microbatch i = rank i's samples), so its bf16 dense tower runs the
+    # same GEMMs: against one pass over the whole batch, the GEMMs'
+    # batch-size-dependent bf16 rounding alone moves a leaf past the 2^-5
+    # bar at this tower's widths
+    if d_idx == 0:
+        shards = ctx.batch_shards
+        pieces = [[on(b, slice(i * (batch // shards),
+                                (i + 1) * (batch // shards)))
+                   for i in range(shards)] for b in host]
+        whole = DL.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               ms, device=dev)
+        if rank == 0:
+            with torch.no_grad():
+                lo = coll.lookup(whole["tables"], feats(on(host[0])),
+                                 method="local")
+            out["a2a_vs_one_device"] = close(every, cat(lo),
+                                             "4-rank a2a vs one-device lookup")
+            del lo
+        one_coll = DL.collection_for(cfg, 1)
+        one = dict(whole, tables=relayout(torch, coll, one_coll,
+                                          whole["tables"]))
+        del whole
+        g_one = [None] * len(OPT.leaves(one))
+        for piece in pieces[0]:
+            STEPS.accumulate_grad(cfg, pcfg, one, piece, g_one, 1.0 / shards)
+        g_one_tree = _refill_tree(OPT.tree_map(lambda x: None, one),
+                                  iter(g_one))
+        g_one_tree["tables"] = relayout(torch, one_coll, coll,
+                                        g_one_tree["tables"])
+        worst = (0.0, "")
+        for path, b in zip(leaves, g_sh):
+            want = _at(g_one_tree, path)
+            tol = LOGIT_REL_TOL * want.abs().max().item()
+            if path[0] == "tables" and ENG.row_sharded(path[1]):
+                rps = want.shape[0] // ms
+                want = want[m_idx * rps:(m_idx + 1) * rps]
+            err = (b - want).abs().max().item()
+            name = "/".join(map(str, path))
+            check(bool(torch.isfinite(b).all()) and err <= tol,
+                  f"rank {rank}: gradient {name} differs from one "
+                  f"device's by {err:.4g} > {tol:.4g}")
+            worst = max(worst, (err / tol if tol else 0.0, name))
+        out["grad_worst_share"], out["grad_worst_leaf"] = worst
+        del g_one, g_one_tree
+        if rank == 0:
+            # the same SHARD_STEPS steps on one device
+            step1 = STEPS.make_train_step(cfg, shape, pcfg, ocfg,
+                                          accum_steps=shards)
+            st1 = OPT.init(ocfg, one)
+            one_losses = []
+            for b in host:
+                one, st1, m = step1(one, st1, on(b))
+                one_losses.append(float(m["loss"]))
+            out["one_device_losses"] = one_losses
+            check(all(_loss_near(a, b) for a, b in zip(losses, one_losses)),
+                  f"sharded losses {losses} vs one device {one_losses}")
+            del st1
+        del one
+    del g_sh
+    out["one_device_s"] = time.perf_counter() - t_one
+    out["rank_s"] = time.perf_counter() - t_start
+    Path(workdir, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def _named_leaves(tree, path=()):
+    """(path, leaf) in ``OPT.leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _refill_tree(tree, it):
+    if isinstance(tree, dict):
+        return {k: _refill_tree(tree[k], it) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_refill_tree(v, it) for v in tree)
+    return next(it)
+
+
+def sharded_dlrm_phase(torch):
+    """Phase 23: 4 ranks on a (2, 2) (data, model) grid, each a process
+    running `sharded_rank` (this script with ``--sharded-rank``).  NCCL
+    with one rank a card where 4 cards exist, else gloo with the tensors
+    on the one card (staged through pinned host buffers).  The parent has
+    built the kernel library, so no rank builds.  A rank that fails or
+    outlasts SHARD_PHASE_LIMIT_S fails the phase; every rank is stopped
+    before it returns.  Returns (results, launches summed over ranks)."""
+    import tempfile
+    backend = "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="sharded_dlrm_")
+    world = SHARD_MESH[0] * SHARD_MESH[1]
+    logs = [open(Path(workdir, f"rank{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--sharded-rank",
+         str(r), "--sharded-dir", workdir, "--sharded-backend", backend],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    failed = None
+    try:
+        deadline = time.perf_counter() + SHARD_PHASE_LIMIT_S
+        while any(pr.poll() is None for pr in procs) and failed is None:
+            bad = [r for r, pr in enumerate(procs)
+                   if pr.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+            elif time.perf_counter() > deadline:
+                failed = f"ranks still running after {SHARD_PHASE_LIMIT_S} s"
+            else:
+                time.sleep(0.2)
+        if failed is None:
+            bad = [r for r, pr in enumerate(procs) if pr.returncode != 0]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+            pr.wait()
+        for f in logs:
+            f.close()
+    if failed is not None:
+        tails = "\n".join(f"--- rank {r} ---\n" + Path(
+            workdir, f"rank{r}.log").read_text()[-3000:]
+            for r in range(world))
+        check(False, f"phase 23: {failed}\n{tails}")
+    ranks = [json.loads(Path(workdir, f"rank{r}.json").read_text())
+             for r in range(world)]
+    check(all(rk["losses"] == ranks[0]["losses"] for rk in ranks),
+          "phase 23: the ranks' losses differ")
+    launches = {k: sum(rk["launches"][k] for rk in ranks)
+                for k in ranks[0]["launches"]}
+    check("held" in ranks[0], "phase 23: rank 0 held no kernel")
+    out = dict(backend=backend, world=world, mesh=list(SHARD_MESH),
+               table_params=SHARD_TABLE_PARAMS, batch=DLRM_CHIP_BATCH,
+               capacity_factor=SHARD_CAPACITY_FACTOR,
+               cache_rows=SHARD_CACHE_ROWS, launches=launches,
+               losses=ranks[0]["losses"],
+               one_device_losses=ranks[0]["one_device_losses"],
+               a2a_vs_one_device=ranks[0]["a2a_vs_one_device"],
+               grad_worst_share=max(rk["grad_worst_share"] for rk in ranks
+                                    if "grad_worst_share" in rk),
+               held=ranks[0]["held"], ranks=ranks,
+               phase_s=time.perf_counter() - t_phase)
+    return out, launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5479,6 +5964,10 @@ def _leaves(tree):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the results as JSON here")
+    # phase 23's ranks: this script started once a rank by the phase
+    ap.add_argument("--sharded-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-backend", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -5491,6 +5980,9 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    if args.sharded_rank is not None:
+        return sharded_rank(args.sharded_rank, args.sharded_dir,
+                            args.sharded_backend)
     import numpy as np
     import torch.nn.functional as F
     from repro_torch import cluster as CL
@@ -5595,6 +6087,9 @@ def main(argv=None):
     log("examples' twins:", json.dumps(examples))
     gc.collect()
     torch.cuda.empty_cache()
+    sharded, sharded_launches = sharded_dlrm_phase(torch)
+    log(f"sharded dlrm ({sharded['backend']}, {sharded['world']} ranks on "
+        f"{sharded['mesh']}):", json.dumps(sharded))
     stats, launches = serve_phase(torch, np, registry.get_config("olmo-1b"),
                                   api, engine_mod, DA, FA)
     log("serve:", json.dumps(stats))
@@ -5786,6 +6281,10 @@ def main(argv=None):
         "train_dlrm_pergroup"]["embedding_gather"]
     for name in ("train_dlrm", "train_dlrm_pergroup"):
         scat[f"launches_{name}"] = examples_launches[name]["fused_scatter"]
+    # phase 23's 3 train steps over the 2 x 2 grid, summed over the ranks
+    fused["launches_sharded_dlrm"] = sharded_launches["fused_lookup"]
+    gather["launches_sharded_dlrm"] = sharded_launches["embedding_gather"]
+    scat["launches_sharded_dlrm"] = sharded_launches["fused_scatter"]
     # the fused scatter's key and hot-run kernels, one each a run kernel
     scat["launches_hot"] = train_launches["fused_scatter_hot"]
     scat["launches_keys"] = train_launches["fused_scatter_keys"]
@@ -5802,7 +6301,8 @@ def main(argv=None):
             "launches_hymba_trained", "launches_qwen2", "launches_nemo",
             "launches_gemma2", "launches_whisper", "launches_internvl",
             "launches_serve_lm", "launches_serve_lm_whisper",
-            "launches_train_dlrm", "launches_train_dlrm_pergroup")
+            "launches_train_dlrm", "launches_train_dlrm_pergroup",
+            "launches_sharded_dlrm")
     extra = ("ms_global", "sdpa_no_softcap_ms")
     kernels = {"kernels": [{k: kern[k] for k in keys}
                            | {k: kern[k] for k in more + extra if k in kern}
@@ -5834,7 +6334,8 @@ def main(argv=None):
                  fleet=fleet, mixed_tenancy=mixed, moe=moe,
                  moe_training=moe_train, ssm=ssm, ssm_training=ssm_train,
                  dense_variants=dense_var, audio_vlm=audio_vlm,
-                 examples=examples, script_s=time.perf_counter() - _T0,
+                 examples=examples, sharded_dlrm=sharded,
+                 script_s=time.perf_counter() - _T0,
                  **kernels),
             indent=2))
     log(f"script: {time.perf_counter() - _T0:.1f} s")

@@ -1,14 +1,22 @@
-"""Single-device embedding engine — the SparseCore lookup (§3.5) in PyTorch.
+"""Sharded embedding engine — the SparseCore execution model (§3.5) in
+PyTorch on ``torch.distributed``.
 
-The single-device part of ``repro/embeddings/engine.py``: the grouped
-table storage, the fused descriptor layout and the two lookup dataflows.
+Port of ``repro/embeddings/engine.py``: the grouped table storage, the
+fused descriptor layout, the one-device lookups, and the row-sharded
+dataflow over ranks,
+
+  ids --dedup--> unique ids --all-to-all--> row owners --gather-->
+  vectors --all-to-all--> requesters --combine--> dense activations
 
 Storage
 -------
 Tables of the same width pack into one row space per width.  With
 ``fused_storage`` (the DLRM's layout) the locally resident tables live in
 ``local_d{D}`` row spaces; sharded width-groups (``num_shards > 1``) keep
-their own ``group_d{D}`` row spaces.
+their own ``group_d{D}`` row spaces.  Under a ranked context
+(``parallel/context.py``) rank (d, m) holds shard m of every
+``group_d{D}`` (rows [m * rps, (m + 1) * rps)) and every ``local_d{D}``
+whole.
 
 Fused lookup (``fused=True``, the default; JAX ``ctx.emb_pipeline``)
 -----------------------------------------------------------------
@@ -43,26 +51,76 @@ lie.  The per-table route runs through ``ops.GatherRows``: the row-gather
 kernel forward (one launch per table), the fused-scatter kernel backward
 (one launch per row space), both dispatched by device the same way.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md
-queue 1, item 12, several devices): the distributed psum / all-to-all
-exchanges and the hot-id cache with its ``PipelinedEmbeddingExecutor``,
-which deduplicates ids on its way (``embeddings/dedup.py`` itself is
-ported); the cache changes only the row-sharded all-to-all path, so on
-one device it would be host bookkeeping only.
+Distributed dataflow
+--------------------
+With a context whose model axis has more than one rank, the locally
+resident tables keep the fused lookup, and each sharded width-group is
+exchanged in one of the reference's two modes:
+  * ``a2a`` — the paper's path: this rank's ids deduplicated, sent to
+    their row owners (the id all-to-all over the model axis), gathered
+    there, sent back (the vector all-to-all), broadcast to every
+    occurrence and combined locally (the reference's einsum combine is a
+    fused lookup here, below).  A destination takes at most C =
+    max(8, ceil(N / ms x capacity_factor)) ids, N the GLOBAL batch's ids
+    of the group (the reference sizes it from the global array); ids
+    whose rank in sorted order within their destination is >= C read
+    back as zero vectors, as in the reference.  The reference exchanges
+    C slots a destination, padded; the port exchanges the kept ids only
+    (variable-length all-to-alls, as the SparseCore's), after a
+    count exchange: the same values, fewer bytes.
+  * ``psum`` — the model axis's ids gathered (the reference replicates
+    them over it), each rank combines the rows it owns, the partial
+    combinations are summed over the model axis and each rank keeps its
+    own samples.  ``auto`` takes it for a group of concatenated valency
+    <= 4.
+Under a ranked context every feature holds this rank's samples: the
+global batch split over (data, model) in rank order, as the reference's
+sparse stage splits it (``P(batch_both)``).  ``emb_pipeline`` (or
+``fused=True``) software-pipelines the groups of a mode
+(``parallel/overlap.software_pipeline``): group k+1's exchange is started
+(``async_op=True``) before group k's gather and combine wait on theirs;
+the results are the per-group loop's, bit for bit.  ``emb_wire_bf16``
+casts the vectors to bf16 before the exchange; after the a2a they are
+widened back to f32 for the combine (the reference combines in bf16).
+
+The exchanges' backwards are written out (``context.exchanged``): the
+equal-split all-to-all's transpose is the same all-to-all on the
+gradient, the psum's is an all-gather of the samples' gradients.  The
+owner gather and the psum partial's gather go through ``ops.GatherRows``
+(the row-gather kernel forward, the fused-scatter kernel backward, on the
+card, into the shard's own row space).  The a2a broadcasts the received
+vectors to their occurrences and combines them in one
+``ops.FusedLookup`` over the received vectors (the fused-lookup kernel
+forward, the fused-scatter kernel backward): each table's columns summed
+in column order, the one-device fused lookup's sum, so the sharded
+lookup gives its bits.  Every sum of the backward is in a fixed order,
+so a step is bitwise repeatable.
+
+A hot-id cache (``embeddings/cache.HotIdCache``) serves its rows locally
+and keeps them out of the exchange; the cached lookup's backward runs the
+uncached dataflow at full capacity (`_CachedLookup`), so no gradient
+enters the snapshot and none is dropped.  ``PipelinedEmbeddingExecutor``
+owns the cache's per-step bookkeeping.
 """
 from __future__ import annotations
 
 import bisect
 import itertools
+import math
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import EmbeddingTableConfig
+from repro_torch.embeddings.cache import HotIdCache
+from repro_torch.embeddings.dedup import dedup_ids
 from repro_torch.embeddings.sharding import plan_placement
 from repro_torch.kernels import ops
+from repro_torch.parallel.context import LOCAL, ParallelContext, exchanged
+from repro_torch.parallel.overlap import software_pipeline
 
 # ---------------------------------------------------------------------------
 # Group layout
@@ -86,6 +144,13 @@ class Group:
     @property
     def name(self) -> str:
         return f"{self.prefix}_d{self.dim}"
+
+
+def row_sharded(name: str) -> bool:
+    """Whether the row space named ``name`` is a row-sharded width-group
+    (``group_d{D}``; rank m of the model axis holds its m-th block of
+    rows), not a replicated ``local_d{D}`` one."""
+    return name.startswith("group_")
 
 
 @dataclass(frozen=True)
@@ -129,12 +194,6 @@ class FusedPlan:
         return self._dev[device]
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
-        f"item {item})")
-
-
 class EmbeddingCollection:
     """Plans placement and owns the parameter layout for a set of tables.
 
@@ -176,24 +235,26 @@ class EmbeddingCollection:
 
     # -- params -------------------------------------------------------------
 
-    def init(self, gen: torch.Generator,
-             device=None) -> Dict[str, torch.Tensor]:
+    def init(self, gen: torch.Generator, device=None,
+             keep=None) -> Dict[str, torch.Tensor]:
         """Every row space, N(0, 1) * 0.01 in f32 (the reference's
         distribution; other draws), on ``device`` (default: ``gen``'s).
         Each row space is drawn and scaled in place, so a large one never
-        exists twice."""
-        def draw(rows, dim):
+        exists twice.  ``keep(name, space)``, if given, returns what to
+        keep of each space (a rank's shard), before the next is drawn."""
+        def draw(name, rows, dim):
             t = torch.empty((rows, dim), dtype=torch.float32,
                             device=gen.device if device is None else device)
-            return t.normal_(generator=gen).mul_(0.01)
+            t = t.normal_(generator=gen).mul_(0.01)
+            return t if keep is None else keep(name, t)
 
-        params = {g.name: draw(g.total_rows, dim)
+        params = {g.name: draw(g.name, g.total_rows, dim)
                   for dim, g in sorted(self.groups.items())}
         if self.fused_storage:
-            params.update({g.name: draw(g.total_rows, dim)
+            params.update({g.name: draw(g.name, g.total_rows, dim)
                            for dim, g in sorted(self.local_groups.items())})
         else:
-            params.update({t.name: draw(t.vocab_size, t.dim)
+            params.update({t.name: draw(t.name, t.vocab_size, t.dim)
                            for t in self.replicated})
         return params
 
@@ -309,31 +370,90 @@ class EmbeddingCollection:
 
     # -- lookup ---------------------------------------------------------------
 
-    def lookup(self, params, features: Dict[str, torch.Tensor], *,
-               method: str = "auto", fused: bool = True,
+    def lookup(self, params, features: Dict[str, torch.Tensor],
+               ctx: ParallelContext = LOCAL, *, method: str = "auto",
+               fused: Optional[bool] = None,
                cache=None) -> Dict[str, torch.Tensor]:
-        """features: name -> (B, max_valency) int32 ids, -1 padded.
+        """features: name -> (B, max_valency) int32 ids, -1 padded (this
+        rank's samples under a ranked context).
 
-        Returns name -> (B, dim) combined embeddings, computed on the one
-        device that holds ``params`` (the reference's ``local_only``
-        branch: every row space, sharded width-groups included, is read
-        locally).  ``fused`` picks the one-launch descriptor lookup or the
-        per-table gathers.
+        Returns name -> (B, dim) combined embeddings.  ``method``: "auto",
+        "a2a", "psum" or "local" (``ctx.emb_method`` overrides "auto");
+        ``fused=None`` follows ``ctx.emb_pipeline``; ``cache`` is a
+        ``HotIdCache`` (or its ``arrays()`` dict), consulted by the
+        pipelined a2a path.  With no mesh, a model axis of one rank or
+        ``method="local"``, every row space is read on this device (the
+        reference's ``local_only`` branch), whatever the method.
         """
-        if method in ("psum", "a2a"):
-            raise _not_ported(f"the distributed {method!r} lookup", 12)
-        if method not in ("auto", "local"):
+        if method == "auto" and ctx.emb_method != "auto":
+            method = ctx.emb_method
+        if method not in ("auto", "local", "psum", "a2a"):
             raise ValueError(f"unknown lookup method {method!r}")
-        if cache is not None:
-            raise _not_ported("the hot-id cache (HotIdCache)", 12)
-        if fused and (self.replicated or self.groups):
-            return self._lookup_fused(params, features, which="all")
-        out = self._lookup_replicated_legacy(params, features)
+        if fused is None:
+            fused = ctx.emb_pipeline
+        cache_arrays = (cache.arrays() if isinstance(cache, HotIdCache)
+                        else (cache or {}))
+        cache_scale = (cache.capacity_scale
+                       if isinstance(cache, HotIdCache) else 1.0)
+        ms = ctx.model_axis_size
+        if ms <= 1 or not ctx.has_mesh or method == "local":
+            if fused and (self.replicated or self.groups):
+                return self._lookup_fused(params, features, which="all")
+            out = self._lookup_replicated_legacy(params, features)
+            for dim, g in sorted(self.groups.items()):
+                ids_all, cols = self._concat_group_ids(g, features)
+                rows = _gather_rows(params[g.name], ids_all)
+                for name, a, b, combiner in cols:
+                    out[name] = _combine(rows[:, a:b], ids_all[:, a:b],
+                                         combiner)
+            return out
+
+        # locally resident tables: the fused single launch (or per table)
+        if fused and self.replicated:
+            out = self._lookup_fused(params, features, which="replicated")
+        else:
+            out = self._lookup_replicated_legacy(params, features)
+
+        # sharded width-groups: the exchange mode per group, then each
+        # mode's groups through one (pipelined) exchange
+        psum_set: List[Tuple[Group, torch.Tensor, List]] = []
+        a2a_set: List[Tuple[Group, torch.Tensor, List]] = []
         for dim, g in sorted(self.groups.items()):
             ids_all, cols = self._concat_group_ids(g, features)
-            rows = _gather_rows(params[g.name], ids_all)
-            for name, a, b, combiner in cols:
-                out[name] = _combine(rows[:, a:b], ids_all[:, a:b], combiner)
+            ids_all = ids_all.to(torch.int32)
+            if method == "psum" or (method == "auto"
+                                    and ids_all.shape[1] <= 4):
+                psum_set.append((g, ids_all, cols))
+            else:
+                a2a_set.append((g, ids_all, cols))
+
+        def unpack(sets, combined):
+            for (g, ids, cols), comb in zip(sets, combined):
+                out.update({name: comb[:, i]
+                            for i, (name, a, b, c) in enumerate(cols)})
+
+        if psum_set:
+            unpack(psum_set, _rowsharded_psum(
+                [params[g.name] for g, _, _ in psum_set],
+                [i for _, i, _ in psum_set], ctx,
+                cols_list=[c for _, _, c in psum_set], pipelined=fused))
+        if a2a_set:
+            tabs = [params[g.name] for g, _, _ in a2a_set]
+            if fused:
+                combined = _rowsharded_a2a_pipelined(
+                    tabs, [i for _, i, _ in a2a_set], ctx,
+                    cols_list=[c for _, _, c in a2a_set],
+                    capacity_factor=ctx.emb_capacity_factor,
+                    caches=[cache_arrays.get(g.name) for g, _, _ in a2a_set],
+                    cache_scale=cache_scale)
+            else:
+                # one exchange a group in turn (the reference's per-group
+                # path consults no cache)
+                combined = [_rowsharded_a2a(
+                    t, ids, ctx, cols=cols,
+                    capacity_factor=ctx.emb_capacity_factor)
+                    for t, (g, ids, cols) in zip(tabs, a2a_set)]
+            unpack(a2a_set, combined)
         return out
 
     def _lookup_replicated_legacy(self, params, features
@@ -377,11 +497,61 @@ class EmbeddingCollection:
 
 
 class PipelinedEmbeddingExecutor:
-    """The reference's hot-id-cache executor facade: not ported yet."""
+    """EmbeddingCollection + hot-id cache + per-step LFU bookkeeping.
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("PipelinedEmbeddingExecutor (hot-id cache, id "
-                          "dedup)", 12)
+    The lookup stays stateless; this facade owns the host-side loop around
+    it: observe the step's ids into the LFU, refresh the replicated hot
+    rows every ``refresh_every`` steps, and hand the cache to the lookup.
+    Under a ranked context ``observe`` gathers every rank's samples first
+    (the global batch, in rank order), so every rank keeps the counts the
+    reference keeps for the whole batch, and the same snapshot.
+    """
+
+    def __init__(self, coll: EmbeddingCollection, *,
+                 cache: Optional[HotIdCache] = None,
+                 refresh_every: int = 1, method: str = "auto"):
+        self.coll = coll
+        self.cache = cache
+        self.refresh_every = max(1, refresh_every)
+        self.method = method
+        self._step = 0
+
+    def observe(self, features, ctx: ParallelContext = LOCAL) -> None:
+        """Fold one step's feature ids into the LFU counts (host-side).
+
+        Only groups the engine routes through the a2a exchange are
+        tracked: psum-routed (small-valency) groups never consult the
+        cache, so counting them would skew hit_rate and waste snapshots.
+        """
+        if self.cache is None:
+            return
+        for dim, g in sorted(self.coll.groups.items()):
+            vl = sum(features[s.spec.name].shape[1] for s in g.slots)
+            if self.method in ("psum", "local") or (self.method == "auto"
+                                                    and vl <= 4):
+                continue
+            ids, cols = self.coll._concat_group_ids(
+                g, {s.spec.name: torch.as_tensor(features[s.spec.name])
+                    for s in g.slots})
+            if ctx.has_mesh:
+                ids = ctx.all_gather(ids.to(torch.int32))
+            ids = ids.cpu().numpy()
+            for name, a, b, _ in cols:       # one table at a time
+                self.cache.observe(g.name, ids[:, a:b])
+
+    def step(self, params, features, ctx: ParallelContext = LOCAL) -> None:
+        """Per-step bookkeeping: observe + periodic refresh."""
+        self.observe(features, ctx)
+        self._step += 1
+        if self.cache is not None and self._step % self.refresh_every == 0:
+            self.cache.refresh_all(self.coll, params, ctx)
+
+    def lookup(self, params, features, ctx: ParallelContext = LOCAL
+               ) -> Dict[str, torch.Tensor]:
+        """The pipelined lookup with this executor's cache (see
+        `EmbeddingCollection.lookup`; ``fused=True``)."""
+        return self.coll.lookup(params, features, ctx, method=self.method,
+                                fused=True, cache=self.cache)
 
 
 # ---------------------------------------------------------------------------
@@ -443,6 +613,273 @@ def _combine(rows, ids, combiner: str):
     if combiner == "mean":
         out = out / valid.sum(dim=1).clamp_min(1.0)[..., None]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Distributed row-sharded lookups
+# ---------------------------------------------------------------------------
+
+
+def _segment_combine(rows, ids, cols):
+    """(B, Vg, D) rows -> (B, K, D) per-table combined vectors (local op):
+    one einsum with the columns' table-selection matrix, as the
+    reference."""
+    Vg = rows.shape[1]
+    sel = torch.zeros((Vg, len(cols)), dtype=rows.dtype, device=rows.device)
+    for i, (name, a, b, comb) in enumerate(cols):
+        sel[a:b, i] = 1.0
+    valid = (ids >= 0).to(rows.dtype)
+    out = torch.einsum("bvd,vk->bkd", rows * valid[..., None], sel)
+    counts = torch.einsum("bv,vk->bk", valid, sel)
+    means = torch.tensor([c == "mean" for *_, c in cols], device=rows.device)
+    denom = torch.where(means[None, :], counts.clamp_min(1.0),
+                        torch.ones_like(counts))
+    return out / denom[..., None]
+
+
+def _owned_rows(table_loc, ids, ctx: ParallelContext):
+    """The rows of ``ids`` (global row ids of the group, any shape (B, V))
+    that this rank's shard holds, zero elsewhere: the row-gather kernel
+    through ``ops.GatherRows`` on the shard's own row space."""
+    rps = table_loc.shape[0]
+    lid = ids - ctx.axis_index(ctx.model_axis) * rps
+    ok = (ids >= 0) & (lid >= 0) & (lid < rps)
+    rows, = ops.GatherRows.apply(table_loc, ((0, rps),),
+                                 torch.where(ok, lid, -1).to(torch.int32))
+    return rows
+
+
+def _rowsharded_psum(tables, ids_list, ctx: ParallelContext, *, cols_list,
+                     pipelined: bool):
+    """The psum mode over the groups of ``tables`` (this rank's shards):
+    stage A gathers the model axis's ids (the samples of this rank's data
+    row, in model order), combines the rows this shard owns into
+    (B_d, K, D) partials and starts their sum over the model axis; stage B
+    waits and keeps this rank's samples.  ``pipelined`` issues group
+    k+1's stage A before group k's stage B."""
+    axis = ctx.model_axis
+    m = ctx.axis_index(axis)
+
+    def stage_a(k):
+        ids = ctx.all_gather(ids_list[k], axis)
+        part = _segment_combine(_owned_rows(tables[k], ids, ctx), ids,
+                                cols_list[k])
+        if ctx.emb_wire_bf16:
+            part = part.to(torch.bfloat16)       # halve the reduction
+        return part, ctx.all_reduce(part.detach(), axis, async_op=True)
+
+    def stage_b(a, k):
+        part, pending = a
+        b = ids_list[k].shape[0]
+        own = pending.then(lambda t: t[m * b:(m + 1) * b].clone())
+        # transpose of (sum over the axis, keep own rows): every rank's
+        # samples' gradients, gathered
+        out = exchanged(part, own, lambda g: ctx.all_gather(g, axis))
+        return out.float()
+
+    if pipelined:
+        return software_pipeline(stage_a, stage_b, range(len(tables)))
+    return [stage_b(stage_a(k), k) for k in range(len(tables))]
+
+
+@dataclass
+class _Descriptors:
+    """One group's id all-to-all payload and what the consume stage needs
+    to reassemble per-occurrence vectors (the reference's tuple, with the
+    send buffer packed: destination d's ids are the ``counts[d]`` <= C
+    kept ones, in slot order)."""
+    send: torch.Tensor      # (sum(counts),) int32 ids, grouped by destination
+    counts: List[int]       # ids sent to each destination of the model axis
+    slot: torch.Tensor      # (N,) int64 row of each unique id's vector
+    keep: torch.Tensor      # (N,) bool: sent and within capacity
+    inv: torch.Tensor       # (N,) int32 occurrence -> unique position
+    hit: torch.Tensor       # (N,) bool: served by the cache
+    cpos: torch.Tensor      # (N,) int64 position in the cache
+
+
+def _a2a_descriptors(ids_loc, ms: int, rps: int, C: int, cache
+                     ) -> _Descriptors:
+    """Dedup one group's rank-local ids and lay out the send descriptors:
+    uids sorted, so destinations are monotonic over the wanted ids, and an
+    id's rank within its destination is the wanted ids before it less
+    those before its destination's first.  Cache hits and ids ranked >= C
+    are dropped (the reference's drop bucket) and never enter the
+    exchange.  The reference sends C slots to every destination, padded
+    with -1; the port sends each destination only its kept ids (the
+    variable-length all-to-all of the paper's SparseCore): the same ids,
+    dropped and kept alike, in fewer bytes."""
+    N = ids_loc.numel()
+    dev = ids_loc.device
+    uids, inv, _ = dedup_ids(ids_loc.reshape(N))     # sorted, -1 tail
+    valid_u = uids >= 0
+    if cache is not None:
+        cids, _ = cache
+        cpos = torch.searchsorted(cids, uids).clamp(0, cids.shape[0] - 1)
+        hit = valid_u & (cids[cpos] == uids)
+    else:
+        cpos = torch.zeros((N,), dtype=torch.int64, device=dev)
+        hit = torch.zeros((N,), dtype=torch.bool, device=dev)
+    want = valid_u & ~hit
+    full_dest = torch.where(valid_u,
+                            torch.div(uids, rps, rounding_mode="floor"), ms)
+    dest = torch.where(want, full_dest, ms).long()   # ms = drop bucket
+    wanted = want.long()
+    cum = torch.cumsum(wanted, 0) - wanted           # exclusive prefix count
+    cum_ext = torch.cat([cum, wanted.sum()[None]])
+    starts = torch.searchsorted(
+        full_dest, torch.arange(ms, dtype=full_dest.dtype, device=dev))
+    before = cum_ext[starts]                         # wanted with dest < d
+    rank = cum - before[dest.clamp(0, ms - 1)]
+    keep = want & (rank < C)
+    counts = torch.bincount(dest[keep], minlength=ms)
+    offs = torch.cumsum(counts, 0) - counts
+    total = int(counts.sum())
+    slot = torch.where(keep, offs[dest.clamp(0, ms - 1)] + rank, total)
+    send = torch.full((total + 1,), -1, dtype=torch.int32, device=dev)
+    send[slot] = uids
+    return _Descriptors(send[:-1], counts.tolist(), slot, keep, inv, hit,
+                        cpos)
+
+
+def _a2a_consume(table_loc, desc: _Descriptors, recv, got, ids_loc, cols,
+                 ctx: ParallelContext, cache):
+    """Owner-side gather + vector all-to-all + reassembly + combine ->
+    (B, K, D).  ``recv``: the ids the ranks of the model axis asked this
+    one for, ``got[j]`` of them from coordinate j."""
+    axis = ctx.model_axis
+    rows = _owned_rows(table_loc, recv[None, :], ctx)[0]   # (sum(got), D)
+    if ctx.emb_wire_bf16:
+        rows = rows.to(torch.bfloat16)   # halve the vector traffic
+    there, back = (desc.counts, got), (got, desc.counts)
+    vecs = exchanged(rows, ctx.all_to_all(rows.detach(), axis,
+                                          async_op=True, splits=back),
+                     lambda g: ctx.all_to_all(g, axis, splits=there)).float()
+    D = vecs.shape[-1]
+    vflat = torch.cat([vecs, vecs.new_zeros((1, D))])
+    uvecs = vflat[desc.slot] * desc.keep[:, None].to(vflat.dtype)
+    if cache is not None:
+        hot = cache[1][desc.cpos].to(uvecs.dtype)     # replicated hot rows
+        uvecs = torch.where(desc.hit[:, None], hot, uvecs)
+    # broadcast to every occurrence and combine, in one fused lookup over
+    # the received vectors: each table's valid columns summed in column
+    # order (the one-device fused lookup's sum, so its bits where the
+    # rows are the same), a mean table divided by its count; its backward
+    # (the fused scatter) sums an id's occurrences in a fixed order
+    occ = torch.where(ids_loc >= 0, desc.inv.reshape(ids_loc.shape),
+                      -1).to(torch.int32)
+    slots, col_slot = _combine_slots(cols, occ.device)
+    return ops.FusedLookup.apply(occ, slots, col_slot, D, uvecs)
+
+
+_SLOTS: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _combine_slots(cols, device):
+    """The fused lookup's slot table (K, 4) and column slots (S,) for a
+    group's column spans ``cols``: one row space (0), each table's span
+    [a, b) and mean flag (cached by layout and device)."""
+    key = (tuple(cols), str(device))
+    if key not in _SLOTS:
+        # normal tensors even under inference_mode: a later backward saves
+        with torch.inference_mode(False):
+            _SLOTS[key] = (
+                torch.tensor([(0, a, b, int(c == "mean"))
+                              for _, a, b, c in cols], dtype=torch.int32,
+                             device=device).reshape(-1, 4),
+                torch.tensor([k for k, (_, a, b, _) in enumerate(cols)
+                              for _ in range(a, b)], dtype=torch.int32,
+                             device=device))
+    return _SLOTS[key]
+
+
+def _a2a_capacity(n_ids: int, ms: int, capacity_factor: float,
+                  scale: float = 1.0) -> int:
+    """Send slots a destination: ``n_ids`` the global batch's ids of the
+    group (the reference's ``ids.shape[0] * ids.shape[1]``)."""
+    return max(8, int(math.ceil(n_ids / ms * capacity_factor * scale)))
+
+
+def _rowsharded_a2a(table, ids, ctx: ParallelContext, *, cols,
+                    capacity_factor: float = 2.0):
+    """The paper's SparseCore path for ONE width-group: dedup -> id
+    all-to-all -> owner gather -> vector all-to-all -> per-occurrence
+    broadcast -> local combine.  ids: (B, Vl), this rank's samples.
+    Returns (B, K, D) combined vectors."""
+    return _rowsharded_a2a_pipelined(
+        [table], [ids], ctx, cols_list=[cols],
+        capacity_factor=capacity_factor, caches=[None])[0]
+
+
+def _rowsharded_a2a_pipelined(tables, ids_list, ctx: ParallelContext, *,
+                              cols_list, capacity_factor: float = 2.0,
+                              caches=None, cache_scale: float = 1.0):
+    """All a2a-mode width-groups, double-buffered: group k+1's descriptor
+    build and id all-to-all (started, not waited) are issued before group
+    k's gather, vector all-to-all and combine (``software_pipeline``)."""
+    axis = ctx.model_axis
+    ms = ctx.model_axis_size
+    n = len(tables)
+    caches = list(caches) if caches is not None else [None] * n
+
+    def make_run(with_cache: bool):
+        # the cached forward provisions miss-only exchange buffers
+        # (capacity * cache_scale); the uncached dataflow, also the exact
+        # backward, keeps full capacity so no gradient is ever dropped
+        caps = [_a2a_capacity(
+            ids.numel() * ctx.batch_shards, ms, capacity_factor,
+            cache_scale if (with_cache and caches[k] is not None) else 1.0)
+            for k, ids in enumerate(ids_list)]
+
+        def run(tabs):
+            def stage_a(k):
+                desc = _a2a_descriptors(
+                    ids_list[k], ms, tabs[k].shape[0], caps[k],
+                    caches[k] if with_cache else None)
+                # how many ids each owner gets, then the ids themselves
+                got = ctx.all_to_all(torch.tensor(
+                    desc.counts, dtype=torch.int64,
+                    device=desc.send.device)[:, None], axis)[:, 0].tolist()
+                return desc, got, ctx.all_to_all(
+                    desc.send, axis, async_op=True,
+                    splits=(desc.counts, got))
+
+            def stage_b(a, k):
+                desc, got, pending = a
+                return _a2a_consume(tabs[k], desc, pending.wait(), got,
+                                    ids_list[k], cols_list[k], ctx,
+                                    caches[k] if with_cache else None)
+
+            return software_pipeline(stage_a, stage_b, range(n))
+        return run
+
+    run_plain = make_run(False)
+    if all(c is None for c in caches):
+        return run_plain(list(tables))
+    return list(_CachedLookup.apply(make_run(True), run_plain, *tables))
+
+
+class _CachedLookup(torch.autograd.Function):
+    """Exact-gradient wrapper for the cached forward (the reference's
+    ``_cached_vjp``): the forward serves hits from the (possibly stale)
+    replicated snapshot; the backward differentiates the uncached
+    dataflow at the same tables, so every gradient goes through the real
+    id/vector all-to-alls to the sharded rows and none enters the
+    snapshot."""
+
+    @staticmethod
+    def forward(ctx, run_cached, run_plain, *tables):
+        ctx.run_plain = run_plain
+        ctx.save_for_backward(*tables)
+        return tuple(run_cached(list(tables)))
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        with torch.enable_grad():
+            tabs = [t.detach().requires_grad_(True)
+                    for t in ctx.saved_tensors]
+            outs = ctx.run_plain(tabs)
+            grads = torch.autograd.grad(outs, tabs, gouts)
+        return (None, None, *grads)
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,11 @@ and the DLRM's (``models/dlrm.py``):
     tables/local_d{D}  (R, D) f32     one row space per embedding width
     bottom, top        lists of {"w": (in, out), "b": (out,)}
 
+Over ranks (``parallel/context.py``), `rank_params` cuts a numpy tree of
+the JAX package's global row spaces to one rank's shards (shard m of each
+``tables/group_d{D}``, everything else whole), and `gather_params` puts
+a rank's tree back together for a comparison on one rank.
+
 A caller turns a JAX tree into numpy with ``jax.tree.map(np.asarray, p)``;
 this module never imports JAX.  A tree that the JAX package's
 ``quant.quantize_params`` made keeps its int8 leaves through that map (each
@@ -51,7 +56,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.embeddings.engine import row_sharded
 from repro_torch.models.quant import QTensor
+from repro_torch.parallel.context import ParallelContext
 
 
 def params_from_numpy(tree: Any, device="cpu",
@@ -75,3 +82,41 @@ def params_from_numpy(tree: Any, device="cpu",
         t = t.to(dtype)
     return t
 
+
+
+def _sharded(path, ctx: ParallelContext) -> bool:
+    return (ctx.has_mesh and ctx.model_axis_size > 1 and len(path) >= 2
+            and path[-2] == "tables" and row_sharded(path[-1]))
+
+
+def _map_shards(tree, ctx: ParallelContext, fn, path=()):
+    """``fn(leaf, sharded)`` over every leaf of a DLRM tree."""
+    if isinstance(tree, dict):
+        return {k: _map_shards(v, ctx, fn, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_shards(v, ctx, fn, path) for v in tree)
+    return fn(tree, _sharded(path, ctx))
+
+
+def rank_params(tree: Any, ctx: ParallelContext, device="cpu") -> Any:
+    """A numpy DLRM tree of global row spaces -> this rank's torch tree:
+    rows [m * rps, (m + 1) * rps) of each ``tables/group_d{D}`` (m the
+    rank's model coordinate), every other leaf whole."""
+    ms, m = ctx.model_axis_size, ctx.axis_index(ctx.model_axis)
+
+    def cut(x, sharded):
+        x = np.asarray(x)
+        if sharded:
+            rps = x.shape[0] // ms
+            x = x[m * rps:(m + 1) * rps]
+        return params_from_numpy(x, device)
+    return _map_shards(tree, ctx, cut)
+
+
+def gather_params(tree: Any, ctx: ParallelContext) -> Any:
+    """A rank's torch tree -> the whole tree, on every rank: each
+    ``tables/group_d{D}`` shard gathered over the model axis in order,
+    every other leaf as it is (it is the same on every rank)."""
+    return _map_shards(tree, ctx, lambda x, sharded: (
+        ctx.all_gather(x.detach(), ctx.model_axis) if sharded else x))

@@ -1,4 +1,4 @@
-"""The train step (port of ``repro/launch/steps.py``, one device).
+"""The train step (port of ``repro/launch/steps.py``).
 
 ``make_train_step`` builds the step `Trainer` runs: the loss and its
 gradient with respect to detached views of the params (so the params
@@ -10,8 +10,18 @@ SSM and hybrid families) is the token cross-entropy, whole or chunked
 (``ParallelConfig.xent_chunk``), plus 0.01 x the MoE load-balance loss,
 with per-layer remat; the DLRM's is its BCE.
 
-Not ported yet: the serving step functions, and compressed gradient
-exchange (``grad_compression != "none"``, queue 1, item 12).
+Under a ranked ``ParallelContext`` (``parallel/context.py``) the DLRM
+trains over a (data, model) grid of ranks: each rank takes its own
+samples through the sparse and the dense stage, the loss is the mean over
+the global batch, and after the backward the gradients are summed: a
+``group_d{D}`` shard's (which the exchange's backward has already brought
+from the ranks of its model axis) over the data axis, every other leaf
+over all ranks.  Adam's global norm counts each shard once
+(``optim/adam.global_norm``).  The other families train on one device.
+
+Not ported yet: the serving step functions, data-parallel training of
+the other families, and compressed gradient exchange
+(``grad_compression != "none"``), queue 1, item 12.
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
 from repro_torch.models import api
 from repro_torch.models import transformer as TF
 from repro_torch.optim import adam as OPT
+from repro_torch.parallel.context import LOCAL, ParallelContext
 
 
 def _xent(logits, labels):
@@ -69,7 +80,8 @@ def _xent_chunked(cfg: ModelConfig, params, x, labels, chunk: int):
 
 
 def loss_fn(cfg: ModelConfig, params, batch,
-            pcfg: ParallelConfig = ParallelConfig()
+            pcfg: ParallelConfig = ParallelConfig(),
+            ctx: ParallelContext = LOCAL
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (loss, metrics).
 
@@ -84,11 +96,14 @@ def loss_fn(cfg: ModelConfig, params, batch,
 
     DLRM: the mean BCE, through the lookup route ``pcfg.emb_pipeline``
     picks (the reference's ``ctx.emb_pipeline``: fused by default, per
-    table when off)."""
+    table when off), over ``ctx``'s ranks (``batch``: this rank's
+    samples)."""
     if cfg.family == "dlrm":
         from repro_torch.models import dlrm as DL
-        loss, _ = DL.loss_fn(cfg, params, batch, fused=pcfg.emb_pipeline)
+        loss, _ = DL.loss_fn(cfg, params, batch, ctx,
+                             fused=pcfg.emb_pipeline)
         return loss, {"loss": loss}
+    _one_device(cfg, ctx)
     if cfg.family not in TF.DECODER_FAMILIES:
         raise NotImplementedError(
             f"training the {cfg.family!r} family waits for ROADMAP.md "
@@ -126,6 +141,26 @@ def pick_accum_steps(cfg: ModelConfig, shape: ShapeConfig, *,
     return max(accum, 1)
 
 
+def _one_device(cfg: ModelConfig, ctx: ParallelContext) -> None:
+    if ctx.has_mesh:
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family over several ranks waits "
+            f"for ROADMAP.md queue 1, item 12")
+
+
+def reduce_grads(cfg: ModelConfig, params, grads: List[torch.Tensor],
+                 ctx: ParallelContext = LOCAL) -> List[torch.Tensor]:
+    """Sum each rank's share of the gradient (``OPT.leaves`` order, in
+    place) into the whole: a sharded leaf's over the data axis, every
+    other leaf's over all ranks.  The identity off a mesh."""
+    if not ctx.has_mesh:
+        return grads
+    from repro_torch.models import dlrm as DL
+    for g, sharded in zip(grads, DL.sharded_leaves(params, ctx)):
+        ctx.all_reduce_(g, ctx.data_axis if sharded else None)
+    return grads
+
+
 def wire_bytes(grads) -> Dict[str, int]:
     """Payload bytes of ONE uncompressed gradient exchange (the reference's
     ``compression.wire_bytes(grads, "none")``)."""
@@ -134,15 +169,17 @@ def wire_bytes(grads) -> Dict[str, int]:
             "wire_bytes_full": full}
 
 
-def value_and_grad(cfg: ModelConfig, pcfg: ParallelConfig, params, batch
+def value_and_grad(cfg: ModelConfig, pcfg: ParallelConfig, params, batch,
+                   ctx: ParallelContext = LOCAL
                    ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
     """(metrics of `loss_fn`, f32 gradients in ``OPT.leaves(params)``
     order): `accumulate_grad` at scale 1 into a fresh accumulator, the
-    path every train step takes.  ``params`` never require a gradient: a
-    tree handed to the serving engine records no graph."""
+    path every train step takes, then `reduce_grads` over ``ctx``'s
+    ranks.  ``params`` never require a gradient: a tree handed to the
+    serving engine records no graph."""
     grads: List[Optional[torch.Tensor]] = [None] * len(OPT.leaves(params))
-    metrics = accumulate_grad(cfg, pcfg, params, batch, grads, 1.0)
-    return metrics, grads
+    metrics = accumulate_grad(cfg, pcfg, params, batch, grads, 1.0, ctx)
+    return metrics, reduce_grads(cfg, params, grads, ctx)
 
 
 def _view(p, a, i, late):
@@ -187,7 +224,8 @@ def _views_into(t, s, acc: List[Optional[torch.Tensor]], index, late):
 
 
 def accumulate_grad(cfg: ModelConfig, pcfg: ParallelConfig, params, batch,
-                    acc: List[Optional[torch.Tensor]], scale: float
+                    acc: List[Optional[torch.Tensor]], scale: float,
+                    ctx: ParallelContext = LOCAL
                     ) -> Dict[str, torch.Tensor]:
     """Adds ``scale`` x the gradient of `loss_fn` into ``acc`` (f32, in
     ``OPT.leaves(params)`` order; an entry that is None is filled with the
@@ -200,7 +238,7 @@ def accumulate_grad(cfg: ModelConfig, pcfg: ParallelConfig, params, batch,
     late: List[Tuple[torch.Tensor, Any]] = []
     views = _views_into(params, api.stacked(cfg, params), acc,
                         iter(range(len(acc))), late)
-    loss, metrics = loss_fn(cfg, views, batch, pcfg)
+    loss, metrics = loss_fn(cfg, views, batch, pcfg, ctx)
     torch.autograd.backward(loss, torch.full_like(loss, scale))
     for v, a in late:
         g = v.grad if v.grad is not None else torch.zeros_like(v)
@@ -212,16 +250,22 @@ def accumulate_grad(cfg: ModelConfig, pcfg: ParallelConfig, params, batch,
 
 
 def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
-                    pcfg: ParallelConfig, ocfg: OptimizerConfig, *,
+                    pcfg: ParallelConfig, ocfg: OptimizerConfig,
+                    ctx: ParallelContext = LOCAL, *,
                     accum_steps: Optional[int] = None) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on the device that holds ``params``; params and optimizer
-    state are updated in place.  ``batch``: name -> tensor on that device.
-    """
+    state are updated in place.  ``batch``: name -> tensor on that device
+    (under a ranked ``ctx``: this rank's samples, ``ctx.local_rows`` of
+    the global batch; params and state: this rank's, as
+    ``models/dlrm.init_params(ctx=ctx)`` lays them out).  The metrics'
+    ``wire_bytes`` count this rank's gradient leaves."""
     if pcfg.grad_compression != "none":
         raise NotImplementedError(
             f"grad_compression={pcfg.grad_compression!r}: compressed "
             f"gradient exchange waits for ROADMAP.md queue 1, item 12")
+    if cfg.family != "dlrm":
+        _one_device(cfg, ctx)
     accum = accum_steps or pick_accum_steps(cfg, shape,
                                             xent_chunk=pcfg.xent_chunk)
 
@@ -229,7 +273,8 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
         acc: List[Optional[torch.Tensor]] = [None] * len(OPT.leaves(params))
         if accum == 1:
             # the microbatch's own metrics, as the reference logs them
-            return acc, accumulate_grad(cfg, pcfg, params, batch, acc, 1.0)
+            return acc, accumulate_grad(cfg, pcfg, params, batch, acc, 1.0,
+                                        ctx)
         B = shape.global_batch
         if B % accum:
             raise ValueError(f"batch {B} is not a multiple of accum_steps "
@@ -238,7 +283,8 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
         loss = 0.0
         for i in range(accum):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            m = accumulate_grad(cfg, pcfg, params, part, acc, 1.0 / accum)
+            m = accumulate_grad(cfg, pcfg, params, part, acc, 1.0 / accum,
+                                ctx)
             # the reference accumulates the loss it differentiates:
             # ce + 0.01 x aux
             total = m["loss"] + 0.01 * m["aux"] if "aux" in m else m["loss"]
@@ -247,11 +293,17 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
 
     def train_step(params, opt_state, batch):
         grads, metrics = accumulated(params, batch)
+        reduce_grads(cfg, params, grads, ctx)
         metrics = dict(metrics, **{k: float(v) for k, v in
                                    wire_bytes(grads).items()})
         # grads is flat in OPT.leaves(params) order, which is the order
         # OPT.apply flattens a tree in
-        params, opt_state, om = OPT.apply(ocfg, params, grads, opt_state)
+        sharded = None
+        if ctx.has_mesh:
+            from repro_torch.models import dlrm as DL
+            sharded = DL.sharded_leaves(params, ctx)
+        params, opt_state, om = OPT.apply(ocfg, params, grads, opt_state,
+                                          ctx=ctx, sharded=sharded)
         return params, opt_state, dict(metrics, **om)
 
     return train_step

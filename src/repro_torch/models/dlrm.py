@@ -14,17 +14,30 @@ routes the table gradients come from the fused-scatter kernel
 (``kernels/ops.FusedLookup``, ``kernels/ops.GatherRows``);
 ``launch/steps.make_train_step`` and ``train/trainer.Trainer`` train on
 the route that ``ParallelConfig.emb_pipeline`` picks.
+
+Under a ranked ``ParallelContext`` (a mesh of (data, model) ranks, one
+process a rank) the tables follow ``collection_for(cfg, model size)``:
+rank (d, m) holds shard m of each ``group_d{D}`` row space and every
+``local_d{D}`` whole (`init_params`), and the batch a rank is given is
+its own samples, the global batch split over (data, model) in rank
+order.  Its sparse stage exchanges ids and vectors with the other ranks
+of its model axis (``EmbeddingCollection.lookup``); its dense stage
+takes the same samples.  `loss_fn` is then the mean over the GLOBAL
+batch; its gradient on a rank is that rank's samples' share, which
+``launch/steps`` sums over the ranks (the reference repeats the dense
+stage over the model axis instead: the same function).
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.embeddings.engine import EmbeddingCollection
+from repro_torch.embeddings.engine import EmbeddingCollection, row_sharded
+from repro_torch.parallel.context import LOCAL, ParallelContext, exchanged
 
 
 @functools.lru_cache(maxsize=8)
@@ -61,27 +74,69 @@ def _mlp_apply(params, x, final_linear: bool = True):
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                num_shards: int = 1, *, device=None) -> Dict[str, Any]:
+                num_shards: int = 1, *, device=None,
+                ctx: ParallelContext = LOCAL) -> Dict[str, Any]:
     """f32 params on ``device`` (default: ``gen``'s; other draws than the
-    reference's, same distributions)."""
+    reference's, same distributions).
+
+    Under a ranked ``ctx`` the layout is ``collection_for(cfg,
+    ctx.model_axis_size)`` and the tables are this rank's: shard m of each
+    ``group_d{D}``, every ``local_d{D}`` whole.  The shards are slices of
+    the one-device init of that layout, bit for bit: every rank draws each
+    whole row space from ``gen``, as one device does, keeps its rows and
+    frees the rest before drawing the next (so a row space is held whole
+    only while it is drawn)."""
     d = cfg.dlrm
     dev = gen.device if device is None else device
+    sharded = ctx.has_mesh and ctx.model_axis_size > 1
+    if sharded:
+        num_shards = ctx.model_axis_size
     coll = collection_for(cfg, num_shards)
     inter_dim = d.bottom_mlp[-1] + sum(t.dim for t in d.tables)
+    keep = None
+    if sharded:
+        m, ms = ctx.axis_index(ctx.model_axis), ctx.model_axis_size
+
+        def keep(name, t):
+            if not row_sharded(name):
+                return t
+            rps = t.shape[0] // ms
+            return t[m * rps:(m + 1) * rps].clone()
     return {
-        "tables": coll.init(gen, dev),
+        "tables": coll.init(gen, dev, keep=keep),
         "bottom": _mlp_init(gen, d.bottom_mlp, d.dense_features, dev),
         "top": _mlp_init(gen, d.top_mlp, inter_dim, dev),
     }
 
 
-def sparse_forward(cfg: ModelConfig, p, batch, *,
+def sharded_leaves(params, ctx: ParallelContext = LOCAL) -> List[bool]:
+    """In ``OPT.leaves(params)`` order: True for each leaf a rank holds a
+    shard of (the ``group_d{D}`` row spaces under a ranked ``ctx`` with
+    more than one model rank), False for a leaf every rank holds whole."""
+    ms = ctx.model_axis_size if ctx.has_mesh else 1
+
+    def walk(t, sharded):
+        if isinstance(t, dict):
+            return [x for k in sorted(t)
+                    for x in walk(t[k], sharded or row_sharded(k))]
+        if isinstance(t, (list, tuple)):
+            return [x for v in t for x in walk(v, sharded)]
+        return [sharded and ms > 1]
+    return walk(params, False)
+
+
+def sparse_forward(cfg: ModelConfig, p, batch,
+                   ctx: ParallelContext = LOCAL, *,
                    coll: Optional[EmbeddingCollection] = None,
-                   fused: bool = True) -> torch.Tensor:
-    """SC side: concatenated per-table embeddings (B, sum_dims) in bf16."""
-    coll = coll or collection_for(cfg)
+                   method: str = "auto", fused: Optional[bool] = None,
+                   cache=None) -> torch.Tensor:
+    """SC side: concatenated per-table embeddings (B, sum_dims) in bf16.
+    ``fused=None`` follows ``ctx.emb_pipeline``; ``cache`` threads a
+    ``HotIdCache`` into the a2a path."""
+    coll = coll or collection_for(cfg, ctx.model_axis_size)
     feats = {t.name: batch[f"cat_{t.name}"] for t in cfg.dlrm.tables}
-    emb = coll.lookup(p["tables"], feats, fused=fused)
+    emb = coll.lookup(p["tables"], feats, ctx, method=method, fused=fused,
+                      cache=cache)
     # one concatenation, then one cast: the values of casting each table
     # to bf16 first, as the reference does
     return torch.cat([emb[t.name] for t in cfg.dlrm.tables],
@@ -97,29 +152,43 @@ def dense_forward(cfg: ModelConfig, p, batch, sparse_vec) -> torch.Tensor:
     return logit[..., 0].float()
 
 
-def forward(cfg: ModelConfig, p, batch, *,
+def forward(cfg: ModelConfig, p, batch, ctx: ParallelContext = LOCAL, *,
             coll: Optional[EmbeddingCollection] = None,
-            fused: bool = True):
-    """-> (logits (B,) f32, aux loss 0.0), as the reference."""
-    logits = dense_forward(cfg, p, batch,
-                           sparse_forward(cfg, p, batch, coll=coll,
-                                          fused=fused))
+            method: str = "auto", fused: Optional[bool] = None,
+            cache=None, **_):
+    """-> (logits (B,) f32, aux loss 0.0), as the reference: this rank's
+    samples under a ranked ``ctx``."""
+    logits = dense_forward(cfg, p, batch, sparse_forward(
+        cfg, p, batch, ctx, coll=coll, method=method, fused=fused,
+        cache=cache))
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
-def loss_fn(cfg: ModelConfig, p, batch, *,
+def loss_fn(cfg: ModelConfig, p, batch, ctx: ParallelContext = LOCAL, *,
             coll: Optional[EmbeddingCollection] = None,
-            fused: bool = True):
+            method: str = "auto", fused: Optional[bool] = None, cache=None):
     """Mean binary cross-entropy on the logits -> (loss, aux 0.0).
     Differentiable with respect to every param through either lookup
     route: ``ops.FusedLookup`` (``fused=True``) or ``ops.GatherRows``
     (``fused=False``), each with the fused-scatter kernel as its backward
-    on the card."""
-    logits, aux = forward(cfg, p, batch, coll=coll, fused=fused)
+    on the card.
+
+    Under a ranked ``ctx``: the mean over the global batch, the same value
+    on every rank (the ranks' sums of their samples' losses, summed).  Its
+    backward starts from this rank's sum only (the sum's transpose is the
+    identity here: the value is one scalar replicated, not one a rank),
+    so a rank's gradient is its samples' share of the global one."""
+    logits, aux = forward(cfg, p, batch, ctx, coll=coll, method=method,
+                          fused=fused, cache=cache)
     labels = batch["labels"].float()
-    loss = torch.mean(torch.clamp_min(logits, 0) - logits * labels
-                      + torch.log1p(torch.exp(-logits.abs())))
-    return loss, aux
+    per = (torch.clamp_min(logits, 0) - logits * labels
+           + torch.log1p(torch.exp(-logits.abs())))
+    if not ctx.has_mesh:
+        return torch.mean(per), aux
+    local = per.sum()
+    total = exchanged(local, ctx.all_reduce(local.detach(), async_op=True),
+                      lambda g: g)
+    return total / (per.shape[0] * ctx.batch_shards), aux
 
 
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:

@@ -73,15 +73,28 @@ def _chunks(t: torch.Tensor) -> Iterator[torch.Tensor]:
         yield flat[i:i + CHUNK]
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, ctx=None, sharded=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32 (a 0-dim
-    tensor on the leaves' device)."""
-    total = None
-    for x in leaves(tree):
+    tensor on the leaves' device).
+
+    Under a ranked context ``ctx`` with ``sharded`` (a bool a leaf, in
+    `leaves` order: True where each rank of the model axis holds a
+    different shard), the shards' squares are summed over the model axis
+    and every other leaf, the same on every rank, counts once: the norm
+    of the whole tree, as one device computes it (in another order)."""
+    total = shard = None
+    flags = sharded or [False] * len(leaves(tree))
+    for x, s in zip(leaves(tree), flags):
         for c in _chunks(x):
             c = c.float()
             sq = torch.dot(c, c)
-            total = sq if total is None else total + sq
+            if s:
+                shard = sq if shard is None else shard + sq
+            else:
+                total = sq if total is None else total + sq
+    if shard is not None:
+        shard = ctx.all_reduce(shard, ctx.model_axis)
+        total = shard if total is None else total + shard
     if total is None:
         return torch.zeros((), dtype=torch.float32)
     return torch.sqrt(total)
@@ -260,12 +273,15 @@ def _check_leaf(p, g, *state) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply(cfg: OptimizerConfig, params, grads, state: OptState
+def apply(cfg: OptimizerConfig, params, grads, state: OptState, *,
+          ctx=None, sharded=None
           ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One step of ``cfg.name``, in place: ``params``, the state's tensors
     and ``grads`` (scaled by the clip factor) are written where they lie.
     ``grads``: the params' tree, or its leaves in ``leaves(params)``
-    order.  Returns (params, the state at step + 1, {"grad_norm", "lr"})."""
+    order.  ``ctx`` and ``sharded``: a rank's shards, as `global_norm`
+    takes them, so the clip is the one-device clip.  Returns (params, the
+    state at step + 1, {"grad_norm", "lr"})."""
     pl, gl = leaves(params), leaves(grads)
     if cfg.name == "adafactor":
         sl = [_factors(params, state.nu)]
@@ -277,7 +293,7 @@ def apply(cfg: OptimizerConfig, params, grads, state: OptState
         raise ValueError(f"params, grads and state differ in leaves: "
                          f"{len(pl)}, {len(gl)}, "
                          f"{', '.join(str(len(x)) for x in sl)}")
-    norm = global_norm(gl)
+    norm = global_norm(gl, ctx, sharded)
     scale = _clip_scale(norm, cfg.grad_clip)
     step = state.step + 1
     lr = lr_schedule(cfg, state.step)

@@ -1,1 +1,1 @@
-"""Parallel context of the port (one device)."""
+"""Parallel context, transport and overlap of the port."""

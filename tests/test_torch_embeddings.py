@@ -36,6 +36,7 @@ from repro.kernels.embedding_grad import fused_scatter_kernel_call
 from repro.kernels.embedding_lookup import (fused_lookup_kernel_call,
                                             gather_kernel_call)
 from repro_torch.configs.base import EmbeddingTableConfig as TTable
+from repro_torch.embeddings import cache as TCACHE
 from repro_torch.embeddings import engine as TENG
 from repro_torch.embeddings import sharding as TSH
 from repro_torch.kernels import embedding_gather as TEG
@@ -374,17 +375,24 @@ def test_init_layout_and_distribution():
 
 
 def test_unported_paths_name_their_roadmap_item():
+    """The distributed methods and the hot-id cache are ported (the ranked
+    paths: tests/test_torch_sharded_embeddings.py).  On ``LOCAL`` they
+    give the one-device lookup bitwise, as the reference's ``local_only``
+    branch does; the executor constructs; an unknown method still
+    raises."""
     _, tc, params, feats = _setup("one_dim")
     tp, tf = _t(params), _t(feats)
-    for method in ("psum", "a2a"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tc.lookup(tp, tf, method=method)
-    # the hot-id cache and its executor wait for several devices too: the
-    # cache changes only the row-sharded all-to-all path
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tc.lookup(tp, tf, cache=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TENG.PipelinedEmbeddingExecutor(tc)
+    want = tc.lookup(tp, tf)
+    for method in ("psum", "a2a", "local"):
+        got = tc.lookup(tp, tf, method=method)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    cache = TCACHE.HotIdCache(capacity=4)
+    got = tc.lookup(tp, tf, method="a2a", cache=cache)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    ex = TENG.PipelinedEmbeddingExecutor(tc, cache=cache)
+    ex.step(tp, tf)
+    got = ex.lookup(tp, tf)
+    assert all(torch.equal(got[k], want[k]) for k in want)
     with pytest.raises(ValueError, match="method"):
         tc.lookup(tp, tf, method="nope")
 
