@@ -162,9 +162,10 @@ each of which fails the run if it fails:
      8, 8) slice.  Both interrupted runs end on the clean run's losses and
      params, bit for bit.
  14. fleet serving — ``examples/serve_fleet.py``'s scenario at full width
+     (olmo-1b cut to FLEET_LAYERS = 4 layers since phase 24 joined)
      through ``repro_torch.fleet``: ``Supercomputer(num_blocks=3)``,
      replicas of ``SliceSpec(slots=4, max_len=128, prompt_len=64,
-     chunk=8)`` on (4, 4, 4) slices sharing the serve phase's weights
+     chunk=8)`` on (4, 4, 4) slices sharing one weight tree of seed 0
      (moved to the card once), ``least_eta`` routing, the example's
      autoscaler, ``timing=0.05``; its bursty trace (seed 2, the model's
      vocabulary, prompts of at most 12 tokens), a spare burnt at 2.15 and
@@ -285,8 +286,9 @@ each of which fails the run if it fails:
      the softcap, which SDPA lacks: a yardstick only); reduced qwen2-7b,
      mistral-nemo-12b and gemma2-9b card vs CPU (a 24-token prefill and
      12 greedy steps, the card fed the CPU's picks: logits within the
-     serve bar, picks equal but at near ties); then full-width qwen2-7b
-     and mistral-nemo-12b on the serve phase's engine and trace, and
+     serve bar, picks equal but at near ties); then qwen2-7b and
+     mistral-nemo-12b at full width (cut to 8 layers since phase 24
+     joined, as gemma2-9b) on the serve phase's engine and trace, and
      gemma2-9b in ``ServeEngine(SliceSpec(slots=8, max_len=4608,
      prompt_len=4480, chunk=8))`` on 8 prompts of 4000-4480 tokens, 64
      new tokens each, counted: every budget met with in-vocabulary ids,
@@ -369,16 +371,34 @@ each of which fails the run if it fails:
      the pipelined a2a lookup bitwise the per-group one, psum within
      EMB_ATOL of it; the hot-id cache through the executor (a step, then
      the next batch observed: hit rate), the cached lookup bitwise the
-     uncached one, gradients too; then the main path, counted: 3
-     ``make_train_step`` steps over the grid (ms a step, bytes sent a
-     step, peak memory); rows 6, 4 and 5 exactly once, once and twice a
-     width-group a step, and rank 0 holds each against its plain version
-     on its first inputs at each shape.  Then against one device from the
+     uncached one, gradients too; then the main path, counted: 3 steps
+     of a ``Trainer`` over the grid from those shards, each rank putting
+     its rows of each batch (ms a step, bytes sent a step, peak memory);
+     rows 6, 4 and 5 exactly once, once and twice a width-group a step,
+     and rank 0 holds each against its plain version on its first inputs
+     at each shape.  Then against one device from the
      same state, accumulating over the same four pieces of the batch in
      rank order: the a2a outputs of the global batch within EMB_ATOL of
      the one-device lookup (``method="local"``) of the whole tables, each
      shard's first gradient within 2^-5 of its leaf's largest |g|, the 3
      losses within 1e-3 + 2^-7 |loss| (``launches_sharded_dlrm``).
+ 24. data-parallel olmo-1b (run after phase 23): 4 ranks on a (4, 1)
+     (data, model) mesh, each a process of its own (this script with
+     ``--dp-rank``), NCCL on 4 cards, else gloo on the one card.
+     olmo-1b at its published width cut to 2 layers (16 with
+     ``--dp-layers`` on 4 cards), one 2048-token sequence a rank, phase
+     12's remat, xent chunks and Adam.  For ``grad_compression`` none,
+     int8 and topk, a ``Trainer`` over the ranks takes 1 warm and 2
+     timed steps (ms a step, bytes sent a rank, peak a rank): the ranks'
+     params bitwise equal after them; none's first loss and exchanged
+     gradient within the training bars of one device accumulating the
+     same four sequences; int8's within 0.51 x each leaf's shared scale
+     of none's (the uncompressed mean) and its payload cut >= 3.9x; topk
+     keeping exactly k a wired leaf a rank.  Then reduced olmo-1b with
+     int8 over the ranks: rank 1 alone asks for a preemption at step 2,
+     every rank stops there, and the resume ends bitwise an
+     uninterrupted run.  No kernel runs on this path (the reference's
+     flash attention has no backward).
 
 Prints, last: a ``{"kernels": [...]}`` line, the card's name and power
 limit as ``nvidia-smi`` gives them, and
@@ -387,6 +407,7 @@ Exits non-zero without a CUDA device or without the repository's ``src``.
 """
 import argparse
 import contextlib
+import dataclasses
 import gc
 import hashlib
 import io
@@ -2797,6 +2818,11 @@ def fault_drill_phase(torch, cfg, CL, RunConfig, ShapeConfig,
 # prompt window holds a prompt (<= 12) and every decoded token (<= 32), so
 # no migrated request is truncated; the vocabulary is the model's.
 FLEET_SPEC = dict(slots=4, max_len=128, prompt_len=64, chunk=8)
+# the fleet's olmo-1b depth (16 as published): routing, failures and
+# scaling do not depend on it, and phases 14 and 15 serve host-paced a
+# layer a step (at full depth 152.4 s of a 1,244.7 s script on an NVIDIA
+# H100 80GB HBM3, 700.00 W, behind a slow host)
+FLEET_LAYERS = 4
 FLEET_AUTOSCALE = dict(min_replicas=1, max_replicas=3, tick_s=0.05,
                        cooldown_s=0.3, scale_up_backlog=3.0,
                        scale_down_backlog=0.5, provision_s=0.1)
@@ -4596,6 +4622,12 @@ def ssm_training_phases(torch, np, registry, api, Dataset, CL, STEPS, OPT,
 # served at full width, with rows 1, 1q, 2, 3 and 3q at gemma2's head_dim
 # of 256 and at qwen2's GQA 7
 DENSE_VARIANTS = ("qwen2-7b", "mistral-nemo-12b", "gemma2-9b")
+# their depth in the serving runs (28, 40 and 42 as published): serving is
+# host-paced a layer a step, and at full depth the three took 173.9 s of
+# a 1,244.7 s script (NVIDIA H100 80GB HBM3, 700.00 W, behind a slow
+# host), past its 1,200 s limit, once phase 24 was added; gemma2's 8
+# layers still alternate windowed and global
+DENSE_VARIANT_LAYERS = 8
 # gemma2-9b's attention: 16 query heads over 8 KV heads of 256, softcap 50,
 # scale 256^-0.5, a window of 4096 on every other layer
 GEMMA2_HEADS = (16, 8, 256)
@@ -4893,8 +4925,9 @@ def dense_variants_phase(torch, np, F, registry, api, engine_mod, DA, FA,
                          REF, QU, ops, TF, dev="cuda"):
     """Phase 20: the dense variants.  Rows 1, 1q, 2, 3 and 3q at gemma2's
     head_dim of 256 and rows 1 and 2 at qwen2's GQA 7, the reduced archs
-    card vs CPU, then full-width qwen2-7b and mistral-nemo-12b on the
-    serve phase's engine and trace (16 requests, 128 new tokens each) and
+    card vs CPU, then qwen2-7b and mistral-nemo-12b at full width, cut to
+    DENSE_VARIANT_LAYERS layers as gemma2-9b is, on the serve phase's
+    engine and trace (16 requests, 128 new tokens each) and
     gemma2-9b in ``SliceSpec(slots=8, max_len=4608, prompt_len=4480,
     chunk=8)`` on `gemma2_trace`, 64 new tokens each (every local layer
     masks at prefill and at decode), each through `serve_counted_phase`
@@ -4911,7 +4944,8 @@ def dense_variants_phase(torch, np, F, registry, api, engine_mod, DA, FA,
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        cfg = registry.get_config(arch)
+        cfg = registry.get_config(arch).replace(
+            num_layers=DENSE_VARIANT_LAYERS)
         if arch == "gemma2-9b":     # past its window, at prefill and decode
             spec, prompts = GEMMA2_SPEC, gemma2_trace(np, cfg.vocab_size)
             new_tokens = GEMMA2_NEW_TOKENS
@@ -5587,7 +5621,7 @@ def sharded_rank(rank, workdir, backend, dev_kind="cuda",
     import torch.distributed as dist
     from repro_torch.configs import registry
     from repro_torch.configs.base import (OptimizerConfig, ParallelConfig,
-                                          ShapeConfig)
+                                          RunConfig, ShapeConfig)
     from repro_torch.data.synthetic import Dataset
     from repro_torch.embeddings import engine as ENG
     from repro_torch.embeddings.cache import HotIdCache
@@ -5601,6 +5635,7 @@ def sharded_rank(rank, workdir, backend, dev_kind="cuda",
     from repro_torch.models import dlrm as DL
     from repro_torch.optim import adam as OPT
     from repro_torch.parallel import context as PC
+    from repro_torch.train.trainer import Trainer, TrainerState
 
     t_start = time.perf_counter()
     world = SHARD_MESH[0] * SHARD_MESH[1]
@@ -5720,30 +5755,37 @@ def sharded_rank(rank, workdir, backend, dev_kind="cuda",
     del g_plain, o_cached, g_cached, ex
     out["checks_s"] = time.perf_counter() - t_start
 
-    # the main path, counted: SHARD_STEPS train steps over the grid; the
+    # the main path, counted: SHARD_STEPS steps of a Trainer over the grid
+    # from these shards (it puts this rank's rows of each batch); the
     # first step's gradient is kept as Adam receives it
     pcfg = ParallelConfig(remat="none")
     ocfg = OptimizerConfig(**SHARD_OPTIMIZER)
-    step = STEPS.make_train_step(cfg, shape, pcfg, ocfg, ctx)
-    state = OPT.init(ocfg, p)
+    run = RunConfig(model=cfg, shape=shape, parallel=pcfg, optimizer=ocfg)
+    trainer = Trainer(run, device=dev, ctx=ctx)
+    state = TrainerState(p, OPT.init(ocfg, p), 0)
     if card:
         torch.cuda.reset_peak_memory_stats()
     EG.launches = FS.launches = FL.launches = 0
-    losses, step_ms, step_bytes = [], [], []
+    step_ms, step_bytes = [], []
+    mark = [0.0, 0]
+
+    def timed(step, _):
+        sync()
+        step_ms.append((time.perf_counter() - mark[0]) * 1e3)
+        step_bytes.append(PC.wire_bytes - mark[1])
+        mark[:] = time.perf_counter(), PC.wire_bytes
     # rank 0 keeps each kernel's first inputs at each shape, to hold them
     spy = first_calls if rank == 0 else _passed
     with spy(torch, EG, "embedding_gather") as gcalls, \
             spy(torch, FS, "fused_scatter") as scalls, \
             spy(torch, FL, "fused_lookup") as lcalls, \
             first_grads(torch, OPT) as g_sh:
-        for b in mine:
-            sync()
-            t0, w0 = time.perf_counter(), PC.wire_bytes
-            p, state, m = step(p, state, b)
-            sync()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            step_bytes.append(PC.wire_bytes - w0)
-            losses.append(float(m["loss"]))
+        sync()
+        mark[:] = time.perf_counter(), PC.wire_bytes
+        state = trainer.train(SHARD_STEPS, state=state, log_every=1,
+                              on_step=timed)
+    p = state.params
+    losses = [m["loss"] for m in trainer.metrics_log]
     launches = {"embedding_gather": EG.launches,
                 "fused_scatter": FS.launches, "fused_lookup": FL.launches}
     out.update(losses=losses, step_ms=step_ms, step_wire_bytes=step_bytes,
@@ -5766,7 +5808,7 @@ def sharded_rank(rank, workdir, backend, dev_kind="cuda",
     check(all(t.device == dev for t in OPT.leaves(p)),
           f"rank {rank}: a param left {dev}")
     leaves = [path for path, _ in _named_leaves(p)]
-    del p, state, step
+    del p, state, trainer
     if card and rank == 0:
         torch.cuda.empty_cache()
         held = {"embedding_gather": hold_first_calls(
@@ -5883,34 +5925,29 @@ def _refill_tree(tree, it):
     return next(it)
 
 
-def sharded_dlrm_phase(torch):
-    """Phase 23: 4 ranks on a (2, 2) (data, model) grid, each a process
-    running `sharded_rank` (this script with ``--sharded-rank``).  NCCL
-    with one rank a card where 4 cards exist, else gloo with the tensors
-    on the one card (staged through pinned host buffers).  The parent has
-    built the kernel library, so no rank builds.  A rank that fails or
-    outlasts SHARD_PHASE_LIMIT_S fails the phase; every rank is stopped
-    before it returns.  Returns (results, launches summed over ranks)."""
+def run_ranks(flag, world, limit_s, what, backend, extra=()):
+    """``world`` processes of this script, each given ``flag RANK`` and
+    then ``extra`` (rank r's log and ``rank{r}.json`` in a fresh
+    directory); a rank that fails or outlasts ``limit_s`` fails the
+    phase, and every rank is stopped before this returns.  Returns the
+    ranks' JSON results."""
     import tempfile
-    backend = "nccl" if torch.cuda.device_count() >= 4 else "gloo"
-    t_phase = time.perf_counter()
-    workdir = tempfile.mkdtemp(prefix="sharded_dlrm_")
-    world = SHARD_MESH[0] * SHARD_MESH[1]
+    workdir = tempfile.mkdtemp(prefix=f"{flag.strip('-')}_")
     logs = [open(Path(workdir, f"rank{r}.log"), "w") for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--sharded-rank",
-         str(r), "--sharded-dir", workdir, "--sharded-backend", backend],
+        [sys.executable, str(Path(__file__).resolve()), flag, str(r),
+         "--rank-dir", workdir, "--rank-backend", backend, *extra],
         stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
     failed = None
     try:
-        deadline = time.perf_counter() + SHARD_PHASE_LIMIT_S
+        deadline = time.perf_counter() + limit_s
         while any(pr.poll() is None for pr in procs) and failed is None:
             bad = [r for r, pr in enumerate(procs)
                    if pr.poll() not in (None, 0)]
             if bad:
                 failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
             elif time.perf_counter() > deadline:
-                failed = f"ranks still running after {SHARD_PHASE_LIMIT_S} s"
+                failed = f"ranks still running after {limit_s} s"
             else:
                 time.sleep(0.2)
         if failed is None:
@@ -5928,9 +5965,23 @@ def sharded_dlrm_phase(torch):
         tails = "\n".join(f"--- rank {r} ---\n" + Path(
             workdir, f"rank{r}.log").read_text()[-3000:]
             for r in range(world))
-        check(False, f"phase 23: {failed}\n{tails}")
-    ranks = [json.loads(Path(workdir, f"rank{r}.json").read_text())
-             for r in range(world)]
+        check(False, f"{what}: {failed}\n{tails}")
+    return [json.loads(Path(workdir, f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def sharded_dlrm_phase(torch):
+    """Phase 23: 4 ranks on a (2, 2) (data, model) grid, each a process
+    running `sharded_rank` (this script with ``--sharded-rank``).  NCCL
+    with one rank a card where 4 cards exist, else gloo with the tensors
+    on the one card (staged through pinned host buffers).  The parent has
+    built the kernel library, so no rank builds.  Returns (results,
+    launches summed over ranks)."""
+    backend = "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+    t_phase = time.perf_counter()
+    world = SHARD_MESH[0] * SHARD_MESH[1]
+    ranks = run_ranks("--sharded-rank", world, SHARD_PHASE_LIMIT_S,
+                      "phase 23", backend)
     check(all(rk["losses"] == ranks[0]["losses"] for rk in ranks),
           "phase 23: the ranks' losses differ")
     launches = {k: sum(rk["launches"][k] for rk in ranks)
@@ -5950,6 +6001,258 @@ def sharded_dlrm_phase(torch):
     return out, launches
 
 
+# Phase 24: data-parallel olmo-1b at its published width (d 2048, 16 heads
+# of 128, d_ff 8192, vocab 50304, tied embeddings), depth cut to 2 layers
+# (0.24e9 parameters: f32 params, gradient, m and v 3.8 GB a rank), so 4
+# ranks share the one card over gloo; one 2048-token sequence a rank,
+# phase 12's remat, xent chunks and Adam
+DP_MESH = (4, 1)
+DP_LAYERS = 2
+DP_SHAPE = ("dp_2k", "train", 2048, 4)
+DP_SCHEMES = ("none", "int8", "topk")
+DP_WARM, DP_TIMED = 1, 2
+DP_PHASE_LIMIT_S = 420
+# the preemption over the ranks: reduced olmo-1b, rank 1 alone asks
+DP_PREEMPT_SHAPE = ("t", "train", 64, 4)
+DP_PREEMPT_STEPS, DP_PREEMPT_AT = 4, 2
+
+
+def _tree_digest(torch, OPT, tree):
+    h = hashlib.sha256()
+    for x in OPT.leaves(tree):
+        h.update(x.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def exchange_log(torch, COMP):
+    """While inside: the largest |g| of each leaf this rank hands to its
+    first ``compressed_allreduce`` (``maxima``), and (numel, kept) of each
+    exact-k selection (``topk``)."""
+    fn, pick = COMP.compressed_allreduce, COMP._topk_index
+    log = {"maxima": None, "topk": []}
+
+    def spy(grads, *a, **k):
+        if log["maxima"] is None:
+            log["maxima"] = torch.stack([g.detach().float().abs().amax()
+                                         for g in grads])
+        return fn(grads, *a, **k)
+
+    def count(flat, frac):
+        idx = pick(flat, frac)
+        log["topk"].append((flat.numel(), int(idx.numel())))
+        return idx
+    COMP.compressed_allreduce, COMP._topk_index = spy, count
+    try:
+        yield log
+    finally:
+        COMP.compressed_allreduce, COMP._topk_index = fn, pick
+
+
+def dp_rank(rank, workdir, backend, dev_kind="cuda", cfg=None,
+            shape=DP_SHAPE, layers=DP_LAYERS):
+    """One rank of phase 24 (a process of its own).  Writes
+    ``rank{rank}.json`` in ``workdir``; raises on any failed check.
+    ``cfg``/``shape``: a smaller model for a rehearsal on the CPU;
+    ``layers``: olmo-1b's depth (16 for the whole model on 4 cards)."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import (OptimizerConfig, ParallelConfig,
+                                          RunConfig, ShapeConfig)
+    from repro_torch.data.synthetic import Dataset
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.optim import adam as OPT
+    from repro_torch.parallel import compression as COMP
+    from repro_torch.parallel import context as PC
+    from repro_torch.train.trainer import Trainer
+
+    t_start = time.perf_counter()
+    world = DP_MESH[0] * DP_MESH[1]
+    card = dev_kind == "cuda"
+    if card:
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        dev = torch.device("cpu")
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+
+    timeout = datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S)
+    dist.init_process_group(backend, store=dist.FileStore(
+        str(Path(workdir) / "store"), world), rank=rank, world_size=world,
+        timeout=timeout)
+    ctx = PC.ParallelContext(mesh=make_mesh(DP_MESH, ("data", "model"),
+                                            timeout=timeout))
+    cfg = cfg or registry.get_config("olmo-1b").replace(num_layers=layers)
+    base = _dense_run(cfg, RunConfig, ShapeConfig, ParallelConfig,
+                      OptimizerConfig)
+    base = base.replace(shape=ShapeConfig(*shape))
+    out = dict(rank=rank, backend=backend, device=str(dev),
+               start_s=time.perf_counter() - t_start, schemes={})
+    first_none = first_loss = None
+    for scheme in DP_SCHEMES:
+        run = base.replace(parallel=dataclasses.replace(
+            base.parallel, grad_compression=scheme))
+        trainer = Trainer(run, device=dev, ctx=ctx)
+        state = trainer.init_state()
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        keep = (first_grads(torch, OPT) if rank == 0
+                else contextlib.nullcontext([]))
+        with keep as g_first, exchange_log(torch, COMP) as xlog:
+            sync()
+            t0 = time.perf_counter()
+            state = trainer.train(DP_WARM, state=state, log_every=1)
+            sync()
+            t1, w1 = time.perf_counter(), PC.wire_bytes
+            state = trainer.train(DP_WARM + DP_TIMED, state=state,
+                                  log_every=1)
+            sync()
+            t2, w2 = time.perf_counter(), PC.wire_bytes
+        m = trainer.metrics_log[-1]
+        r = dict(losses=[x["loss"] for x in trainer.metrics_log],
+                 warm_ms=(t1 - t0) * 1e3,
+                 step_ms=(t2 - t1) * 1e3 / DP_TIMED,
+                 step_wire_bytes=(w2 - w1) / DP_TIMED,
+                 wire_bytes=m["wire_bytes"],
+                 wire_bytes_full=m["wire_bytes_full"],
+                 wire_overhead_bytes=m["wire_overhead_bytes"],
+                 digest=_tree_digest(torch, OPT, state.params))
+        if card:
+            r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"rank {rank} {scheme}: losses {r['losses']}")
+        if scheme == "none":
+            first_none, first_loss = g_first, r["losses"][0]
+        elif scheme == "int8":
+            check(r["wire_bytes_full"] / r["wire_bytes"] >= 3.9,
+                  f"int8 wire cut {r['wire_bytes_full'] / r['wire_bytes']}")
+            # each leaf's shared scale: its largest |g| over the ranks
+            scales = ctx.all_reduce(xlog["maxima"], op="max") / 127.0
+            if rank == 0:
+                worst = 0.0
+                for g8, g, sc in zip(g_first, first_none, scales.tolist()):
+                    err = (g8 - g).abs().max().item()
+                    check(err <= 0.51 * sc, f"int8 mean off the "
+                          f"uncompressed mean by {err:.3e} > 0.51 x {sc:.3e}")
+                    worst = max(worst, err / sc)
+                r["int8_worst_scale_share"] = worst
+        else:
+            want = [(n, max(1, int(n * COMP.TOPK_FRAC)))
+                    for n, _ in xlog["topk"]]
+            check(xlog["topk"] == want and xlog["topk"],
+                  f"rank {rank}: topk kept {xlog['topk']}, want {want}")
+            r["topk_leaves"] = len(want)
+        out["schemes"][scheme] = r
+        del trainer, state, g_first
+        free()
+    out["schemes_s"] = time.perf_counter() - t_start
+
+    # scheme none against one device accumulating the same four pieces
+    # (piece i = rank i's sequence) from the same initial params
+    if rank == 0:
+        run = base
+        params = api.init_params(cfg, seed=run.seed, device=dev,
+                                 dtype=torch.float32)
+        b0 = Dataset(cfg, run.shape, seed=run.seed).batch(0)
+        acc = [None] * len(OPT.leaves(params))
+        loss = 0.0
+        for i in range(world):
+            piece = {k: torch.as_tensor(v[i:i + 1], device=dev)
+                     for k, v in b0.items()}
+            mi = STEPS.accumulate_grad(cfg, run.parallel, params, piece, acc,
+                                       1.0 / world)
+            loss += float(mi["loss"]) / world
+        check(_loss_near(first_loss, loss),
+              f"DP loss {first_loss} vs one device {loss}")
+        worst = 0.0
+        for g, want in zip(first_none, acc):
+            tol = LOGIT_REL_TOL * want.abs().max().item()
+            err = (g - want).abs().max().item()
+            check(err <= tol, f"DP gradient off one device's by {err:.4g} > "
+                              f"{tol:.4g}")
+            worst = max(worst, err / tol if tol else 0.0)
+        out.update(one_device_loss=loss, grad_worst_share=worst)
+        del params, acc
+    del first_none
+    free()
+
+    # a preemption over the ranks (reduced config): rank 1 alone asks at
+    # step DP_PREEMPT_AT, both stop there, the resume ends bitwise an
+    # uninterrupted run's
+    small = RunConfig(model=registry.get_reduced("olmo-1b"),
+                      shape=ShapeConfig(*DP_PREEMPT_SHAPE),
+                      parallel=ParallelConfig(grad_compression="int8"),
+                      optimizer=OptimizerConfig(**SHARD_OPTIMIZER))
+    ck = [str(Path(workdir) / n) for n in ("whole", "cut")]
+    whole = Trainer(small, device=dev, ctx=ctx, ckpt_dir=ck[0]).train(
+        DP_PREEMPT_STEPS)
+    cut = Trainer(small, device=dev, ctx=ctx, ckpt_dir=ck[1])
+    first = cut.train(DP_PREEMPT_STEPS, on_step=lambda s, _: (
+        cut.request_preempt() if s == DP_PREEMPT_AT and rank == 1 else None))
+    check(cut.preempted and first.step == DP_PREEMPT_AT,
+          f"rank {rank}: preempted {cut.preempted} at {first.step}")
+    last = Trainer(small, device=dev, ctx=ctx, ckpt_dir=ck[1]).train(
+        DP_PREEMPT_STEPS)
+    same = all(torch.equal(a, b) for a, b in zip(
+        OPT.leaves([whole.params, whole.opt_state.mu, whole.opt_state.nu]),
+        OPT.leaves([last.params, last.opt_state.mu, last.opt_state.nu])))
+    check(same, f"rank {rank}: the resumed run is not bitwise the whole one")
+    out["preempt_digest"] = _tree_digest(torch, OPT, last.params)
+    out["rank_s"] = time.perf_counter() - t_start
+    Path(workdir, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_phase(torch, layers=DP_LAYERS):
+    """Phase 24: 4 ranks on a (4, 1) (data, model) mesh, each a process
+    running `dp_rank` (this script with ``--dp-rank``), NCCL with one rank
+    a card where 4 cards exist, else gloo on the one card.  The ranks'
+    params must be bitwise equal after each scheme's steps."""
+    backend = "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+    t_phase = time.perf_counter()
+    world = DP_MESH[0] * DP_MESH[1]
+    ranks = run_ranks("--dp-rank", world, DP_PHASE_LIMIT_S, "phase 24",
+                      backend, ("--dp-layers", str(layers)))
+    for scheme in DP_SCHEMES:
+        got = [rk["schemes"][scheme] for rk in ranks]
+        check(len({g["digest"] for g in got}) == 1,
+              f"phase 24 {scheme}: the ranks' params differ")
+        check(all(g["losses"] == got[0]["losses"] for g in got),
+              f"phase 24 {scheme}: the ranks' losses differ")
+    check(len({rk["preempt_digest"] for rk in ranks}) == 1,
+          "phase 24: the resumed ranks' params differ")
+    r0 = ranks[0]
+    schemes = {s: dict(r0["schemes"][s],
+                       step_ms_ranks=[rk["schemes"][s]["step_ms"]
+                                      for rk in ranks],
+                       peak_gb_ranks=[rk["schemes"][s].get("peak_gb")
+                                      for rk in ranks])
+               for s in DP_SCHEMES}
+    return dict(backend=backend, world=world, mesh=list(DP_MESH),
+                layers=layers, shape=list(DP_SHAPE), schemes=schemes,
+                one_device_loss=r0["one_device_loss"],
+                grad_worst_share=r0["grad_worst_share"],
+                rank_s=[rk["rank_s"] for rk in ranks],
+                phase_s=time.perf_counter() - t_phase)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5964,10 +6267,13 @@ def _leaves(tree):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the results as JSON here")
-    # phase 23's ranks: this script started once a rank by the phase
+    # phases 23 and 24's ranks: this script started once a rank
     ap.add_argument("--sharded-rank", type=int, help=argparse.SUPPRESS)
-    ap.add_argument("--sharded-dir", help=argparse.SUPPRESS)
-    ap.add_argument("--sharded-backend", help=argparse.SUPPRESS)
+    ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-layers", type=int, default=DP_LAYERS,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rank-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--rank-backend", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -5981,8 +6287,11 @@ def main(argv=None):
         return 2
     sys.path.insert(0, str(src))
     if args.sharded_rank is not None:
-        return sharded_rank(args.sharded_rank, args.sharded_dir,
-                            args.sharded_backend)
+        return sharded_rank(args.sharded_rank, args.rank_dir,
+                            args.rank_backend)
+    if args.dp_rank is not None:
+        return dp_rank(args.dp_rank, args.rank_dir, args.rank_backend,
+                       layers=args.dp_layers)
     import numpy as np
     import torch.nn.functional as F
     from repro_torch import cluster as CL
@@ -6090,6 +6399,9 @@ def main(argv=None):
     sharded, sharded_launches = sharded_dlrm_phase(torch)
     log(f"sharded dlrm ({sharded['backend']}, {sharded['world']} ranks on "
         f"{sharded['mesh']}):", json.dumps(sharded))
+    dp = dp_phase(torch)
+    log(f"data-parallel olmo-1b ({dp['backend']}, {dp['world']} ranks on "
+        f"{dp['mesh']}):", json.dumps(dp))
     stats, launches = serve_phase(torch, np, registry.get_config("olmo-1b"),
                                   api, engine_mod, DA, FA)
     log("serve:", json.dumps(stats))
@@ -6167,7 +6479,7 @@ def main(argv=None):
     log("fault drill:", json.dumps(drill))
     gc.collect()
     torch.cuda.empty_cache()
-    olmo = registry.get_config("olmo-1b")
+    olmo = registry.get_config("olmo-1b").replace(num_layers=FLEET_LAYERS)
     fleet, fleet_launches, olmo_params = fleet_phase(
         torch, np, olmo, api, CL, FLT, engine_mod, DA, FA, REF)
     log("fleet:", json.dumps({k: v for k, v in fleet.items() if k != "log"}))
@@ -6335,6 +6647,7 @@ def main(argv=None):
                  moe_training=moe_train, ssm=ssm, ssm_training=ssm_train,
                  dense_variants=dense_var, audio_vlm=audio_vlm,
                  examples=examples, sharded_dlrm=sharded,
+                 data_parallel=dp,
                  script_s=time.perf_counter() - _T0,
                  **kernels),
             indent=2))

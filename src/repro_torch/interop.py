@@ -39,8 +39,9 @@ and the DLRM's (``models/dlrm.py``):
 
 Over ranks (``parallel/context.py``), `rank_params` cuts a numpy tree of
 the JAX package's global row spaces to one rank's shards (shard m of each
-``tables/group_d{D}``, everything else whole), and `gather_params` puts
-a rank's tree back together for a comparison on one rank.
+``tables/group_d{D}``, everything else whole), `shard_params` cuts a
+torch tree the same way, and `gather_params` puts a rank's tree back
+together (for a comparison on one rank, or a checkpoint).
 
 A caller turns a JAX tree into numpy with ``jax.tree.map(np.asarray, p)``;
 this module never imports JAX.  A tree that the JAX package's
@@ -111,6 +112,20 @@ def rank_params(tree: Any, ctx: ParallelContext, device="cpu") -> Any:
             rps = x.shape[0] // ms
             x = x[m * rps:(m + 1) * rps]
         return params_from_numpy(x, device)
+    return _map_shards(tree, ctx, cut)
+
+
+def shard_params(tree: Any, ctx: ParallelContext) -> Any:
+    """A whole torch DLRM tree (the same on every rank) -> this rank's:
+    rows [m * rps, (m + 1) * rps) of each ``tables/group_d{D}`` copied,
+    every other leaf as it is."""
+    ms, m = ctx.model_axis_size, ctx.axis_index(ctx.model_axis)
+
+    def cut(x, sharded):
+        if not sharded:
+            return x
+        rps = x.shape[0] // ms
+        return x[m * rps:(m + 1) * rps].clone()
     return _map_shards(tree, ctx, cut)
 
 

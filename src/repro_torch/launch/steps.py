@@ -10,18 +10,26 @@ SSM and hybrid families) is the token cross-entropy, whole or chunked
 (``ParallelConfig.xent_chunk``), plus 0.01 x the MoE load-balance loss,
 with per-layer remat; the DLRM's is its BCE.
 
-Under a ranked ``ParallelContext`` (``parallel/context.py``) the DLRM
-trains over a (data, model) grid of ranks: each rank takes its own
-samples through the sparse and the dense stage, the loss is the mean over
-the global batch, and after the backward the gradients are summed: a
-``group_d{D}`` shard's (which the exchange's backward has already brought
-from the ranks of its model axis) over the data axis, every other leaf
-over all ranks.  Adam's global norm counts each shard once
-(``optim/adam.global_norm``).  The other families train on one device.
+Under a ranked ``ParallelContext`` (``parallel/context.py``) the step
+follows the reference's rule.  Where the batch axes hold more than one
+rank, the model axis one, and the global batch splits into the ranks'
+microbatches, each rank takes the gradient of its own samples on one
+device (``LOCAL``) and the ranks exchange it through
+``parallel/compression.compressed_allreduce``: the plain mean for
+``grad_compression="none"`` (the decoder families) or the compressed one
+(every family); the metrics are averaged over the ranks, so every
+replica takes the same update.  Otherwise the DLRM trains over its
+(data, model) grid of ranks: each rank takes its own samples through the
+sparse and the dense stage, the loss is the mean over the global batch,
+and after the backward the gradients are summed: a ``group_d{D}``
+shard's (which the exchange's backward has already brought from the
+ranks of its model axis) over the data axis, every other leaf over all
+ranks; a compression scheme is then the one-device round trip, as it is
+on one device.  Adam's global norm counts each shard once
+(``optim/adam.global_norm``).  A decoder with a model axis over one rank
+(tensor or FSDP sharding) waits for ROADMAP.md queue 1, item 12(b).
 
-Not ported yet: the serving step functions, data-parallel training of
-the other families, and compressed gradient exchange
-(``grad_compression != "none"``), queue 1, item 12.
+Not ported yet: the serving step functions.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
 from repro_torch.models import api
 from repro_torch.models import transformer as TF
 from repro_torch.optim import adam as OPT
+from repro_torch.parallel import compression as COMP
 from repro_torch.parallel.context import LOCAL, ParallelContext
 
 
@@ -122,13 +131,15 @@ def loss_fn(cfg: ModelConfig, params, batch,
     return ce + 0.01 * aux, {"loss": ce, "aux": aux}
 
 
-def pick_accum_steps(cfg: ModelConfig, shape: ShapeConfig, *,
-                     logits_budget: int = 256 << 20, xent_chunk: int = 0,
-                     ndev: int = 1) -> int:
+def pick_accum_steps(cfg: ModelConfig, shape: ShapeConfig,
+                     ctx: ParallelContext = LOCAL, *,
+                     logits_budget: int = 256 << 20,
+                     xent_chunk: int = 0) -> int:
     """Accumulation steps so per-device microbatch logits stay bounded
-    (``ndev`` devices share the batch; the port runs on one)."""
+    (every rank of ``ctx``'s mesh shares the batch)."""
     if cfg.family == "dlrm":
         return 1
+    ndev = ctx.mesh.size() if ctx.mesh is not None else 1
     eff_seq = min(xent_chunk, shape.seq_len) if xent_chunk else shape.seq_len
     bytes_per_sample = eff_seq * cfg.vocab_size * 4
     total = shape.global_batch * bytes_per_sample
@@ -144,8 +155,9 @@ def pick_accum_steps(cfg: ModelConfig, shape: ShapeConfig, *,
 def _one_device(cfg: ModelConfig, ctx: ParallelContext) -> None:
     if ctx.has_mesh:
         raise NotImplementedError(
-            f"training the {cfg.family!r} family over several ranks waits "
-            f"for ROADMAP.md queue 1, item 12")
+            f"the {cfg.family!r} family's loss over several ranks (tensor "
+            f"or FSDP sharding) waits for ROADMAP.md queue 1, item 12(b); "
+            f"data-parallel steps take make_train_step on a (n, 1) mesh")
 
 
 def reduce_grads(cfg: ModelConfig, params, grads: List[torch.Tensor],
@@ -159,14 +171,6 @@ def reduce_grads(cfg: ModelConfig, params, grads: List[torch.Tensor],
     for g, sharded in zip(grads, DL.sharded_leaves(params, ctx)):
         ctx.all_reduce_(g, ctx.data_axis if sharded else None)
     return grads
-
-
-def wire_bytes(grads) -> Dict[str, int]:
-    """Payload bytes of ONE uncompressed gradient exchange (the reference's
-    ``compression.wire_bytes(grads, "none")``)."""
-    full = sum(g.numel() * g.element_size() for g in OPT.leaves(grads))
-    return {"wire_bytes": full, "wire_overhead_bytes": 0,
-            "wire_bytes_full": full}
 
 
 def value_and_grad(cfg: ModelConfig, pcfg: ParallelConfig, params, batch,
@@ -249,6 +253,15 @@ def accumulate_grad(cfg: ModelConfig, pcfg: ParallelConfig, params, batch,
     return {k: v.detach() for k, v in metrics.items()}
 
 
+def _mean_metrics(metrics: Dict, ctx: ParallelContext
+                  ) -> Dict[str, torch.Tensor]:
+    """Each metric averaged over the data axis, in one collective."""
+    keys = list(metrics)
+    v = torch.stack([metrics[k].float().reshape(()) for k in keys])
+    v = ctx.all_reduce(v, ctx.data_axis) / ctx.axis_size(ctx.data_axis)
+    return dict(zip(keys, v.unbind(0)))
+
+
 def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
                     pcfg: ParallelConfig, ocfg: OptimizerConfig,
                     ctx: ParallelContext = LOCAL, *,
@@ -258,24 +271,38 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
     state are updated in place.  ``batch``: name -> tensor on that device
     (under a ranked ``ctx``: this rank's samples, ``ctx.local_rows`` of
     the global batch; params and state: this rank's, as
-    ``models/dlrm.init_params(ctx=ctx)`` lays them out).  The metrics'
-    ``wire_bytes`` count this rank's gradient leaves."""
-    if pcfg.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression={pcfg.grad_compression!r}: compressed "
-            f"gradient exchange waits for ROADMAP.md queue 1, item 12")
-    if cfg.family != "dlrm":
+    ``models/dlrm.init_params(ctx=ctx)`` lays them out, and a decoder's
+    whole on every rank).  ``pcfg.grad_compression`` picks the exchange
+    (see the module doc).  The metrics' ``wire_bytes``,
+    ``wire_bytes_full`` and ``wire_overhead_bytes`` are
+    ``compression.wire_bytes`` of this rank's gradient leaves."""
+    scheme = pcfg.grad_compression
+    if scheme not in COMP.SCHEMES:
+        raise ValueError(f"grad_compression={scheme!r}: one of "
+                         f"{COMP.SCHEMES}")
+    decoder = cfg.family != "dlrm"
+    if decoder and ctx.model_axis_size > 1:
         _one_device(cfg, ctx)
-    accum = accum_steps or pick_accum_steps(cfg, shape,
+    accum = accum_steps or pick_accum_steps(cfg, shape, ctx,
                                             xent_chunk=pcfg.xent_chunk)
+    ndp = ctx.axis_size(ctx.data_axis)
+    # the reference's dp_exchange (and, for the decoders, its plain mean):
+    # each rank's gradient on one device, then the exchange
+    per_rank = (ndp > 1 and ctx.model_axis_size == 1
+                and (scheme != "none" or decoder)
+                and shape.global_batch % (ndp * accum) == 0)
+    if decoder and ctx.has_mesh and not per_rank:
+        raise ValueError(f"a global batch of {shape.global_batch} does not "
+                         f"split into {ndp} ranks x {accum} microbatches")
+    gctx = LOCAL if per_rank else ctx
 
     def accumulated(params, batch) -> Tuple[List[torch.Tensor], Dict]:
         acc: List[Optional[torch.Tensor]] = [None] * len(OPT.leaves(params))
         if accum == 1:
             # the microbatch's own metrics, as the reference logs them
             return acc, accumulate_grad(cfg, pcfg, params, batch, acc, 1.0,
-                                        ctx)
-        B = shape.global_batch
+                                        gctx)
+        B = next(iter(batch.values())).shape[0]
         if B % accum:
             raise ValueError(f"batch {B} is not a multiple of accum_steps "
                              f"{accum}")
@@ -284,7 +311,7 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
         for i in range(accum):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             m = accumulate_grad(cfg, pcfg, params, part, acc, 1.0 / accum,
-                                ctx)
+                                gctx)
             # the reference accumulates the loss it differentiates:
             # ce + 0.01 x aux
             total = m["loss"] + 0.01 * m["aux"] if "aux" in m else m["loss"]
@@ -293,15 +320,22 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
 
     def train_step(params, opt_state, batch):
         grads, metrics = accumulated(params, batch)
-        reduce_grads(cfg, params, grads, ctx)
+        sharded = None
+        if per_rank:
+            grads = COMP.compressed_allreduce(grads, scheme,
+                                              ctx.batch_axes, ctx)
+            metrics = _mean_metrics(metrics, ctx)
+        else:
+            reduce_grads(cfg, params, grads, ctx)
+            if ctx.has_mesh:
+                from repro_torch.models import dlrm as DL
+                sharded = DL.sharded_leaves(params, ctx)
+            if scheme != "none":
+                grads = COMP.compress_grads(grads, scheme)
         metrics = dict(metrics, **{k: float(v) for k, v in
-                                   wire_bytes(grads).items()})
+                                   COMP.wire_bytes(grads, scheme).items()})
         # grads is flat in OPT.leaves(params) order, which is the order
         # OPT.apply flattens a tree in
-        sharded = None
-        if ctx.has_mesh:
-            from repro_torch.models import dlrm as DL
-            sharded = DL.sharded_leaves(params, ctx)
         params, opt_state, om = OPT.apply(ocfg, params, grads, opt_state,
                                           ctx=ctx, sharded=sharded)
         return params, opt_state, dict(metrics, **om)

@@ -25,6 +25,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import dlrm as DL
 from repro_torch.models import transformer as TF
 from repro_torch.models import whisper as WH
+from repro_torch.parallel.context import LOCAL, ParallelContext
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -67,14 +68,17 @@ def _family(cfg: ModelConfig, *ok: str) -> None:
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-                dtype: Optional[torch.dtype] = None):
+                dtype: Optional[torch.dtype] = None,
+                ctx: ParallelContext = LOCAL):
     """Random params from a ``torch.Generator`` seeded with ``seed``, on
     ``device``, in the JAX layout.  ``dtype``: a decoder's weights
     (default bf16 for serving; ``torch.float32`` for training, the
     reference's f32 master weights, cast to bf16 at each use); a DLRM's
     params are f32, as the reference's.  ``device="meta"`` gives the
-    shapes and dtypes only (`param_shapes`).  (Weights that must equal the
-    JAX package's come over through ``repro_torch.interop``.)"""
+    shapes and dtypes only (`param_shapes`).  Under a ranked ``ctx`` a
+    DLRM's tables are this rank's shards (``dlrm.init_params(ctx=)``); a
+    decoder's params are whole on every rank.  (Weights that must equal
+    the JAX package's come over through ``repro_torch.interop``.)"""
     _family(cfg, *_MODELS)
     dev = resolve_device(device)
     # a meta tensor draws nothing: any generator will do
@@ -83,7 +87,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     if cfg.family == "dlrm":
         if dtype not in (None, torch.float32):
             raise ValueError(f"DLRM params are float32, not {dtype}")
-        return DL.init_params(cfg, gen, device=dev)
+        return DL.init_params(cfg, gen, device=dev, ctx=ctx)
     model = WH if cfg.family == "audio" else TF
     return model.init_params(cfg, gen, device=dev,
                              dtype=dtype or torch.bfloat16)

@@ -121,9 +121,10 @@ class ParallelContext:
                           splits=splits)
 
     def all_reduce(self, x: torch.Tensor, axis: Optional[str] = None, *,
-                   async_op: bool = False):
-        """Sum of ``x`` over the axis (``None``: every rank), a new tensor."""
-        return all_reduce(x, self.group(axis), async_op=async_op)
+                   async_op: bool = False, op: str = "sum"):
+        """Sum (``op="max"``: the largest) of ``x`` over the axis
+        (``None``: every rank), a new tensor."""
+        return all_reduce(x, self.group(axis), async_op=async_op, op=op)
 
     def all_gather(self, x: torch.Tensor, axis: Optional[str] = None
                    ) -> torch.Tensor:
@@ -236,18 +237,23 @@ def all_to_all(x: torch.Tensor, group, *, async_op: bool = False,
     return p if async_op else p.wait()
 
 
-def all_reduce(x: torch.Tensor, group, *, async_op: bool = False):
-    """Sum of ``x`` over ``group``, a new tensor."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(x: torch.Tensor, group, *, async_op: bool = False,
+               op: str = "sum"):
+    """Sum (``op="max"``: the largest) of ``x`` over ``group``, a new
+    tensor."""
     s = dist.get_world_size(group)
     _count(x.numel() * x.element_size() * 2 * (s - 1) / s)
     if _staged(x, group):
         h = _take(x.shape, x.dtype)
         h.copy_(x)
-        work = dist.all_reduce(h, group=group, async_op=True)
+        work = dist.all_reduce(h, op=_OPS[op], group=group, async_op=True)
         p = Pending(work, h, _to_device(x.device, h))
     else:
         out = x.clone(memory_format=torch.contiguous_format)
-        work = dist.all_reduce(out, group=group, async_op=True)
+        work = dist.all_reduce(out, op=_OPS[op], group=group, async_op=True)
         p = Pending(work, out)
     return p if async_op else p.wait()
 

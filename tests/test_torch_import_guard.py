@@ -71,7 +71,8 @@ SLICE_4_MODULES = [
     "repro_torch.core.costmodel", "repro_torch.core.goodput",
     "repro_torch.core.ocs", "repro_torch.core.scheduler",
     "repro_torch.core.topology", "repro_torch.parallel",
-    "repro_torch.parallel.context", "repro_torch.train.checkpoint",
+    "repro_torch.parallel.context", "repro_torch.parallel.compression",
+    "repro_torch.train.checkpoint",
     "repro_torch.launch.quickstart",
 ]
 

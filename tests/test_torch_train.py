@@ -422,9 +422,13 @@ def test_gradient_views_die_with_the_call(dlrm, fused, monkeypatch):
 
 def test_unported_training_paths_name_their_items(dlrm):
     run = TRun(model=dlrm["tcfg"], shape=TShape("t", "train", 1, 8))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TSTEPS.make_train_step(run.model, run.shape,
-                               TPar(grad_compression="int8"), TOpt())
+    # compressed gradients on one device: the reference's round trip,
+    # with the int8 payload's 4x cut in the metrics
+    tr = Trainer(run.replace(parallel=TPar(grad_compression="int8")),
+                 device="cpu")
+    tr.train(1, log_every=1)
+    m = tr.metrics_log[-1]
+    assert m["wire_bytes_full"] / m["wire_bytes"] >= 3.9
     # the dense, MoE, SSM and hybrid families train; the families still
     # to port (the VLM prefix, Whisper) wait for item 11
     for family in ("vlm", "audio"):
